@@ -1,0 +1,274 @@
+"""The sketcher: packed genomes -> sketch hypervectors, on one device.
+
+Counterpart of the packed path of ``hypergen_tpu.models.sketcher``
+(``make_sketch_step(validity="packed")`` and ``Sketcher``). One step per
+batch of same-bucket genomes:
+
+  packed 2-bit words [B, W] + n_pos [B]
+    -> K1 (``ops.kernels.hash_kernel``): unpack, rolling canonical k-mer,
+       t1ha2, FracMinHash threshold, per-cell survivor slots + true counts
+    -> cell-cap ladder: a cell with more survivors than slots reruns K1
+       with cap = min(next_pow2(cell_max), lsub); nothing is dropped
+    -> compaction of the survivors with their positions
+    -> run postfilter: drop windows that overlap an invalid run
+    -> the distinct survivor hashes of each genome
+    -> wyrng-expand + bundle HV encode, i16 wrap, wrapping-i32 norm^2
+
+K1 hashes every position as if valid; windows that touch an N run, a
+record separator or the padding are removed exactly by the postfilter. The
+HV is a sum over the *set* of surviving hashes, so the result does not
+depend on batching, bucketing or the cell geometry.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from hypergen_tpu.io.fastx import PackedGenome, read_genome_packed
+from hypergen_tpu.io.sketch_db import FileSketch
+from hypergen_tpu.params import SketchParams
+from hypergen_tpu_torch.ops.compact import compact_masked
+from hypergen_tpu_torch.ops.encode import encode_hv, hv_norm2_i32, hv_to_i16
+from hypergen_tpu_torch.ops.kernels.hash_kernel import hash_packed_rows
+
+log = logging.getLogger("hypergen")
+
+_NO_RUN = np.int32(0x7FFFFFFF)  # start of a padding run row: never reached
+ENCODE_BLOCK = 512  # hashes per encode block: bounds the [B, n, D] bit tensor
+# genomes whose bucket reaches this many chunks (~67 Mbp at the default
+# chunk size) run alone, as a one-row batch
+ONE_ROW_MIN_CHUNKS = 512
+
+
+def packed_row_words(n_chunks: int, chunk_positions: int) -> int:
+    """u32 words per genome row (16 codes a word; the slack words cover the
+    last cell's halo read)."""
+    return n_chunks * chunk_positions // 16 + 4
+
+
+def packed_cells(chunk_positions: int) -> int:
+    """K1 cell count for a chunk size (cells must divide C/16 and be a
+    multiple of 128), in the JAX package's order of preference, so that
+    both packages cut chunks into the same cells. 0 = C is too small or
+    misaligned."""
+    for c in (2048, 4096, 1024, 128):
+        if chunk_positions % (16 * c) == 0:
+            return c
+    return 0
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def filter_positions_by_runs(
+    pos: torch.Tensor, runs: torch.Tensor, ksize: int
+) -> torch.Tensor:
+    """Which k-mer windows avoid every invalid run.
+
+    pos: int32 [B, S] genome-global k-mer starts (window [p, p+k)).
+    runs: int32 [B, R, 2] disjoint [start, end) runs sorted by start,
+    padded with rows that start at INT32_MAX. Returns bool [B, S].
+
+    The run with the largest start below p+k is the only candidate: runs
+    are disjoint and sorted, so their ends increase with their starts, and
+    that run has the largest end of all runs starting before p+k.
+    """
+    starts = runs[..., 0].contiguous().to(torch.int64)
+    ends = runs[..., 1].to(torch.int64)
+    p = pos.to(torch.int64)
+    idx = torch.searchsorted(starts, p + ksize) - 1  # last start < p + k
+    end = torch.gather(ends, 1, idx.clamp(min=0))
+    return (idx < 0) | (end <= p)
+
+
+def distinct_hashes(
+    h: torch.Tensor, keep: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise distinct kept hashes: (sorted h [B, N], first-occurrence
+    mask [B, N]). Dropped entries become U64_MAX (-1), which no survivor can
+    be (the keep test is a strict h < threshold <= U64_MAX)."""
+    hs = torch.sort(torch.where(keep, h, -1), dim=-1).values
+    prev = torch.nn.functional.pad(hs[:, :-1], (1, 0), value=-1)
+    return hs, (hs != -1) & (hs != prev)
+
+
+class Sketcher:
+    """Batched genome sketcher on one torch device.
+
+    Equivalent of the reference sketch orchestrator
+    (reference:src/sketch.rs:12-69), with the per-genome hot loops on the
+    device and FASTA parsing in a thread pool.
+    """
+
+    def __init__(
+        self,
+        params: SketchParams,
+        device="cpu",
+        chunk_positions: int = 1 << 17,
+        batch: int = 8,
+    ):
+        params.validate()
+        self.params = params
+        self.device = torch.device(device)
+        self.C = int(chunk_positions)
+        self.cells = packed_cells(self.C)
+        if not self.cells:
+            raise ValueError(
+                f"chunk positions {self.C} must be a multiple of 2048"
+            )
+        self.lsub = self.C // self.cells
+        self.batch = int(batch)
+        # slots per cell: 8x the expected survivors of a cell, at least 4
+        self.cell_cap = int(
+            min(max(4, -(-8 * self.lsub // max(params.scaled, 1))), self.lsub)
+        )
+
+    def _bucket(self, L: int) -> int:
+        """Chunks per row for a genome of L codes: a power of two."""
+        n_pos = max(L - self.params.ksize + 1, 1)
+        return _next_pow2(-(-n_pos // self.C))
+
+    def _prepare_batch(
+        self, genomes: List[PackedGenome], n_chunks: int
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Host inputs for one step: (packed words int32 [B, W] holding u32
+        bits, as K1 takes them; invalid runs int32 [B, R, 2] padded to the
+        batch's largest run count; k-mer counts n_pos int32 [B])."""
+        k = self.params.ksize
+        W = packed_row_words(n_chunks, self.C)
+        buf = np.zeros((len(genomes), W * 4), dtype=np.uint8)
+        R = max([1] + [g.runs.shape[0] for g in genomes])
+        runs = np.full((len(genomes), R, 2), _NO_RUN, dtype=np.int32)
+        n_pos = np.zeros(len(genomes), dtype=np.int32)
+        for i, g in enumerate(genomes):
+            nb = min(g.packed2.shape[0], W * 4)
+            buf[i, :nb] = g.packed2[:nb]
+            runs[i, : g.runs.shape[0]] = g.runs
+            n_pos[i] = max(g.length - k + 1, 0)
+        return buf.view(np.int32), runs, n_pos
+
+    def _hash(self, words, n_pos, n_chunks):
+        """K1 over a batch, climbing the cell-cap ladder until no cell has
+        more survivors than slots."""
+        p = self.params
+        cap = self.cell_cap
+        while True:
+            h, pos, valid, cell_max = hash_packed_rows(
+                words, n_pos, n_chunks, self.C, p.ksize, p.seed, p.threshold,
+                canonical=p.canonical, method=p.sketch_method,
+                cells=self.cells, cap=cap,
+            )
+            max_count = int(cell_max.max())
+            if max_count <= cap:
+                return h, pos, valid
+            log.warning(
+                "survivor cap overflow (%d > %d); retrying", max_count, cap
+            )
+            cap = min(_next_pow2(max_count), self.lsub)
+
+    def sketch_batch(self, genomes: List[PackedGenome]) -> List[Dict[str, object]]:
+        """Sketch up to `batch` genomes in one step on the device.
+
+        Returns per genome {"hv": int16 [D] numpy, "norm2": int,
+        "n_hashes": int}.
+        """
+        if not genomes:
+            return []
+        n_chunks = max(self._bucket(g.length) for g in genomes)
+        words, runs, n_pos = (
+            torch.from_numpy(a).to(self.device)
+            for a in self._prepare_batch(genomes, n_chunks)
+        )
+        h, pos, valid = self._hash(words, n_pos, n_chunks)
+        (h, pos), counts = compact_masked(valid, h, pos)
+        filled = torch.arange(h.shape[1], device=h.device) < counts[:, None]
+        clean = filled & filter_positions_by_runs(pos, runs, self.params.ksize)
+        hs, first = distinct_hashes(h, clean)
+        hv16 = hv_to_i16(
+            encode_hv(hs, first, self.params.hv_d, block=ENCODE_BLOCK)
+        )
+        norm2 = hv_norm2_i32(hv16)
+        hv16, norm2, n_hashes = (
+            t.cpu().numpy() for t in (hv16, norm2, first.sum(dim=-1))
+        )
+        return [
+            {"hv": hv16[i], "norm2": int(norm2[i]),
+             "n_hashes": int(n_hashes[i])}
+            for i in range(len(genomes))
+        ]
+
+    def _to_filesketch(self, res: Dict[str, object], name: str) -> FileSketch:
+        p = self.params
+        if p.if_compressed:
+            return FileSketch.from_dense(
+                res["hv"], res["norm2"], name, p.ksize, p.scaled,
+                p.canonical, p.seed,
+            )
+        # quant_bits 0 marks a dense (uncompressed) record
+        return FileSketch(
+            ksize=p.ksize, scaled=p.scaled, canonical=p.canonical, seed=p.seed,
+            hv_d=p.hv_d, hv_quant_bits=0, hv_norm_2=res["norm2"],
+            file_str=name, hv=np.asarray(res["hv"], dtype=np.int16),
+        )
+
+    def sketch_files(self, paths: Sequence) -> List[FileSketch]:
+        """Sketch many genome files, in input order.
+
+        Files are parsed in a thread pool through a bounded read-ahead
+        window (8x batch), so memory stays bounded for any folder.
+        Same-bucket genomes within the window are grouped into batches;
+        partial groups run at the end.
+        """
+        from hypergen_tpu.utils.progress import ProgressBar
+
+        paths = list(paths)
+        pb = ProgressBar(len(paths))
+        io_threads = max(min(self.params.threads, 16), 1)
+        read_ahead = max(8 * self.batch, 2 * io_threads)
+        results: Dict[int, FileSketch] = {}
+
+        def run(group: List[Tuple[int, PackedGenome]]) -> None:
+            for (i, _), res in zip(group, self.sketch_batch([g for _, g in group])):
+                results[i] = self._to_filesketch(res, str(paths[i]))
+                pb.inc()
+
+        by_bucket: Dict[int, List[Tuple[int, PackedGenome]]] = {}
+        with ThreadPoolExecutor(max_workers=io_threads) as pool:
+            pending = collections.deque()
+            it = iter(range(len(paths)))
+
+            def fill():
+                while len(pending) < read_ahead:
+                    i = next(it, None)
+                    if i is None:
+                        return
+                    pending.append((i, pool.submit(read_genome_packed, paths[i])))
+
+            fill()
+            while pending:
+                i, fut = pending.popleft()
+                g = fut.result()
+                fill()
+                bucket = self._bucket(g.length)
+                if bucket >= ONE_ROW_MIN_CHUNKS:
+                    run([(i, g)])
+                    continue
+                by_bucket.setdefault(bucket, []).append((i, g))
+                if len(by_bucket[bucket]) >= self.batch:
+                    run(by_bucket.pop(bucket))
+            for bucket in sorted(by_bucket):
+                group = by_bucket[bucket]
+                for j in range(0, len(group), self.batch):
+                    run(group[j : j + self.batch])
+        pb.finish()
+        return [results[i] for i in range(len(paths))]

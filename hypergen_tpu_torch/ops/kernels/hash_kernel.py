@@ -1,0 +1,223 @@
+"""K1: the fused packed hash kernel, its wrapper and its plain version.
+
+Counterpart of ``hypergen_tpu.ops.pallas.hash_kernel.hash_packed_rows_pallas``
+with the same arguments, cell geometry and output layout, so that with the
+same ``cells`` every output is bit-identical to the TPU kernel's, slot for
+slot. Hashes come back as int64 bit patterns instead of (hi, lo) u32 pairs.
+
+The kernel (``csrc/hash_kernel.cu``) runs for a CUDA tensor; the plain
+PyTorch version runs for a CPU tensor. A CUDA tensor never reaches the
+plain version: if the kernel cannot be built or launched, the call raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from hypergen_tpu_torch.ops.kmers import hash_kmer_positions
+from hypergen_tpu_torch.ops.u64 import U64_MASK
+
+CELLS = 2048  # the packed path's preferred cell count (models.sketcher)
+
+
+def _check(packed_words, n_pos, n_chunks, chunk_positions, ksize, cells,
+           cap) -> None:
+    """Raise on any launch the kernel does not take."""
+    if packed_words.dtype != torch.int32 or packed_words.dim() != 2:
+        raise ValueError("packed_words must be int32 [B, W] (u32 bits)")
+    if n_pos.dtype != torch.int32 or n_pos.shape != packed_words.shape[:1]:
+        raise ValueError("n_pos must be int32 [B]")
+    if n_pos.device != packed_words.device:
+        raise ValueError("packed_words and n_pos must share a device")
+    if not (packed_words.is_contiguous() and n_pos.is_contiguous()):
+        raise ValueError("packed_words and n_pos must be contiguous")
+    if not 1 <= ksize <= 32:
+        raise ValueError("ksize must be in [1, 32]")
+    B, W = packed_words.shape
+    C = chunk_positions
+    if B < 1 or n_chunks < 1 or cap < 1:
+        raise ValueError("need at least one row, one chunk and one slot")
+    if cells % 128 != 0:
+        raise ValueError(f"cells {cells} must be a multiple of 128")
+    if C % (16 * cells) != 0:
+        raise ValueError(
+            f"chunk positions {C} must be a multiple of 16*cells ({16 * cells})"
+        )
+    lsub = C // cells
+    t_w = -(-(lsub + ksize - 1) // 16)
+    need = n_chunks * (C // 16) + t_w - lsub // 16
+    if W < need:
+        raise ValueError(f"packed row too short: {W} words < {need}")
+
+
+def _rows_plain(packed_words, n_pos, n_chunks, C, ksize, seed, threshold,
+                canonical, method, cells, cap):
+    """Plain PyTorch K1 in the kernel's raw layout.
+
+    Unpacks each row to 2-bit codes, hashes every position with all bases
+    taken as valid (the packed path hashes optimistically; the caller's run
+    postfilter repairs invalid windows), keeps h < threshold && pos < n_pos,
+    ranks the survivors within each cell and scatters them into the same
+    [B*n_chunks, cap, cells] slots with the same true counts. One row at a
+    time, to bound memory at the production shape.
+    """
+    B = packed_words.shape[0]
+    dev = packed_words.device
+    lsub = C // cells
+    n = n_chunks * C
+    shifts = torch.arange(0, 32, 2, device=dev)
+    out_h = torch.full((B * n_chunks, cap, cells), -1, dtype=torch.int64,
+                       device=dev)
+    out_pos = torch.full((B * n_chunks, cap, cells), -1, dtype=torch.int32,
+                         device=dev)
+    out_cnt = torch.zeros((B * n_chunks, cells), dtype=torch.int32, device=dev)
+    n_words = -(-(n + ksize - 1) // 16)
+    for b in range(B):
+        w = packed_words[b, :n_words].to(torch.int64)
+        codes = ((w[:, None] >> shifts) & 3).reshape(-1)[: n + ksize - 1]
+        h, keep = hash_kmer_positions(
+            codes, ksize, seed, threshold, canonical=canonical, method=method
+        )
+        keep &= torch.arange(n, device=dev) < n_pos[b]
+        keep = keep.reshape(n_chunks, cells, lsub)
+        rank = torch.cumsum(keep, dim=-1, dtype=torch.int32) - 1
+        out_cnt[b * n_chunks : (b + 1) * n_chunks] = rank[..., -1] + 1
+        put = keep & (rank < cap)
+        chunk, cell, t = put.nonzero(as_tuple=True)
+        bn = b * n_chunks + chunk
+        slot = rank[chunk, cell, t].long()
+        out_h[bn, slot, cell] = h.reshape(n_chunks, cells, lsub)[chunk, cell, t]
+        out_pos[bn, slot, cell] = (cell * lsub + t).to(torch.int32)
+    return out_h, out_pos, out_cnt
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel's C entry point, built and bound on first use."""
+    from hypergen_tpu_torch.ops.kernels import build
+
+    fn = build.load("hash_kernel").hg_hash_packed_rows
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong,
+        ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
+    ]
+    return fn
+
+
+def _rows_cuda(packed_words, n_pos, n_chunks, C, ksize, seed, threshold,
+               canonical, method, cells, cap):
+    """Launch csrc/hash_kernel.cu; same raw layout as _rows_plain."""
+    fn = _entry()
+    B, W = packed_words.shape
+    dev = packed_words.device
+    out_h = torch.full((B * n_chunks, cap, cells), -1, dtype=torch.int64,
+                       device=dev)
+    out_pos = torch.full((B * n_chunks, cap, cells), -1, dtype=torch.int32,
+                         device=dev)
+    out_cnt = torch.empty((B * n_chunks, cells), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(
+            packed_words.data_ptr(), W, n_pos.data_ptr(), B, n_chunks, C,
+            ksize, seed & U64_MASK, threshold, int(canonical),
+            int(method == "mmhash"), cells, cap, out_h.data_ptr(),
+            out_pos.data_ptr(), out_cnt.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"hash kernel launch failed: CUDA error {err}")
+    hash_packed_rows.launches += 1
+    return out_h, out_pos, out_cnt
+
+
+def hash_packed_rows(
+    packed_words: torch.Tensor,
+    n_pos: torch.Tensor,
+    n_chunks: int,
+    chunk_positions: int,
+    ksize: int,
+    seed: int,
+    threshold: int,
+    canonical: bool = True,
+    method: str = "t1ha2",
+    cells: int = CELLS,
+    cap: int = 4,
+):
+    """Fused front half of the sketch step straight from packed rows.
+
+    packed_words: int32 [B, W] holding u32 words of 16 2-bit codes each
+      (position p at bits [2*(p%16), +2) of word p//16). Rows cover
+      n_chunks*chunk_positions positions plus slack; invalid and padding
+      regions may hold any bits.
+    n_pos: int32 [B], k-mer positions per genome; positions >= n_pos never
+      survive. Everything below is hashed as if valid, and the caller
+      postfilters against the genome's invalid runs.
+
+    Returns (h int64 [B, S], pos int32 [B, S] genome-global k-mer start,
+    valid bool [B, S], cell_max int32 [B]) with S = n_chunks*cap*cells in
+    (chunk, slot, cell) order. Empty slots hold the U64_MAX sentinel (-1)
+    and pos -1. cell_max > cap means slot overflow: rerun with a larger
+    cap. Launches the CUDA kernel for a CUDA tensor and the plain version
+    for a CPU tensor.
+    """
+    rows_fn = _rows_for(packed_words.device)
+    return _run(rows_fn, packed_words, n_pos, n_chunks, chunk_positions,
+                ksize, seed, threshold, canonical, method, cells, cap)
+
+
+hash_packed_rows.launches = 0  # CUDA launches, for showing the path ran
+
+
+def _rows_for(device: torch.device):
+    """The kernel for a CUDA device, the plain version for the CPU; no
+    fallback from one to the other."""
+    if device.type == "cuda":
+        return _rows_cuda
+    if device.type == "cpu":
+        return _rows_plain
+    raise ValueError(f"no hash kernel for device {device}")
+
+
+def hash_packed_rows_plain(
+    packed_words: torch.Tensor,
+    n_pos: torch.Tensor,
+    n_chunks: int,
+    chunk_positions: int,
+    ksize: int,
+    seed: int,
+    threshold: int,
+    canonical: bool = True,
+    method: str = "t1ha2",
+    cells: int = CELLS,
+    cap: int = 4,
+):
+    """The plain PyTorch version of hash_packed_rows, on any device."""
+    return _run(_rows_plain, packed_words, n_pos, n_chunks, chunk_positions,
+                ksize, seed, threshold, canonical, method, cells, cap)
+
+
+def _run(rows_fn, packed_words, n_pos, n_chunks, C, ksize, seed, threshold,
+         canonical, method, cells, cap):
+    if method not in ("t1ha2", "mmhash"):
+        raise ValueError(f"unknown sketch method {method!r}")
+    _check(packed_words, n_pos, n_chunks, C, ksize, cells, cap)
+    B = packed_words.shape[0]
+    out_h, out_pos, out_cnt = rows_fn(
+        packed_words, n_pos, n_chunks, C, ksize, seed, threshold, canonical,
+        method, cells, cap,
+    )
+    # raw [B*n_chunks, cap, cells] -> the JAX launcher's (chunk, slot, cell)
+    S = n_chunks * cap * cells
+    h = out_h.reshape(B, S)
+    valid = h != -1
+    chunk_off = torch.arange(n_chunks, dtype=torch.int32, device=h.device)
+    chunk_off = (chunk_off * C).repeat_interleave(cap * cells)
+    pos = torch.where(valid, out_pos.reshape(B, S) + chunk_off, -1)
+    cell_max = out_cnt.reshape(B, -1).amax(dim=-1)
+    return h, pos, valid, cell_max

@@ -31,6 +31,11 @@ def pytest_configure(config):
         "needs_devices(n): skip when the active backend has fewer than n "
         "devices (e.g. the full suite on a single real TPU chip)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's kernels); skips "
+        "without one",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,73 @@
+"""Tests of the PyTorch port that need a CUDA card; they skip without one.
+
+This file imports no JAX (the machine with the card has none), so it runs
+there without tests/conftest.py, which imports JAX:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tolerance: exact equality of bits, the CUDA kernel against its plain
+PyTorch version and the card's sketches against the CPU's.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hypergen_tpu.io.fastx import INVALID, packed_from_codes
+from hypergen_tpu.params import SketchParams, fracminhash_threshold
+from hypergen_tpu_torch.models.sketcher import Sketcher, packed_row_words
+from hypergen_tpu_torch.ops.kernels import hash_kernel as hk
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain(cuda):
+    """The CUDA kernel against the plain version, both on the card, with
+    and without slot overflow."""
+    rng = np.random.default_rng(1)
+    nc, C, k = 4, 1 << 15, 21
+    W = packed_row_words(nc, C)
+    words = torch.from_numpy(
+        rng.integers(0, 2**32, size=(2, W), dtype=np.uint64)
+        .astype(np.uint32).view(np.int32)).to(cuda)
+    n_pos = torch.tensor([nc * C - 1000, C + 7], dtype=torch.int32).to(cuda)
+    args = (words, n_pos, nc, C, k, 123, fracminhash_threshold(50))
+    for cap in (2, 11):
+        before = hk.hash_packed_rows.launches
+        a = hk.hash_packed_rows(*args, cells=2048, cap=cap)
+        b = hk.hash_packed_rows_plain(*args, cells=2048, cap=cap)
+        assert hk.hash_packed_rows.launches == before + 1
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert int(a[3].max()) > 2  # cap=2 overflowed, cap=11 did not
+    assert int(a[3].max()) <= 11
+
+
+@pytest.mark.cuda
+def test_cuda_sketch_matches_cpu(cuda):
+    """The whole sketch step on the card equals the CPU run, including a
+    batch that climbs the cell-cap ladder."""
+    rng = np.random.default_rng(4)
+    genomes = []
+    for L in (9000, 3000, 40):
+        codes = rng.integers(0, 4, size=L).astype(np.uint8)
+        codes[L // 3 : L // 3 + 25] = INVALID
+        genomes.append(packed_from_codes(codes))
+    rep = np.tile(np.array([0, 0, 1, 1], np.uint8), 600)  # (AACC)n
+    codes = rng.integers(0, 4, size=8000).astype(np.uint8)
+    codes[2000 : 2000 + rep.size] = rep
+    genomes.append(packed_from_codes(codes))
+    p = SketchParams(scaled=50, hv_d=1024)
+    before = hk.hash_packed_rows.launches
+    got = Sketcher(p, device=cuda, chunk_positions=4096).sketch_batch(genomes)
+    assert hk.hash_packed_rows.launches >= before + 2  # the ladder climbed
+    want = Sketcher(p, device="cpu", chunk_positions=4096).sketch_batch(genomes)
+    for a, b in zip(got, want):
+        assert a["n_hashes"] == b["n_hashes"] and a["norm2"] == b["norm2"]
+        np.testing.assert_array_equal(a["hv"], b["hv"])
