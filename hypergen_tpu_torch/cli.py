@@ -16,9 +16,9 @@ import sys
 import time
 from pathlib import Path
 
-from hypergen_tpu import params as P
-from hypergen_tpu.params import DistParams, SketchParams
-from hypergen_tpu.utils.logging import setup_logging
+from hypergen_tpu_torch import params as P
+from hypergen_tpu_torch.params import DistParams, SketchParams
+from hypergen_tpu_torch.utils.logging import setup_logging
 
 log = logging.getLogger("hypergen")
 
@@ -115,7 +115,7 @@ def _device(name: str):
 
 
 def _load_db(path: Path):
-    from hypergen_tpu.io.sketch_db import load_sketch, sketches_to_db
+    from hypergen_tpu_torch.io.sketch_db import load_sketch, sketches_to_db
 
     if path.is_dir():
         log.error("%s: .hgdb directories are not in this port yet", path)
@@ -124,8 +124,8 @@ def _load_db(path: Path):
 
 
 def run_sketch(args) -> None:
-    from hypergen_tpu.io.fastx import get_fasta_files
-    from hypergen_tpu.io.sketch_db import dump_sketch
+    from hypergen_tpu_torch.io.fastx import get_fasta_files
+    from hypergen_tpu_torch.io.sketch_db import dump_sketch
     from hypergen_tpu_torch.models.sketcher import Sketcher
 
     sp = SketchParams(

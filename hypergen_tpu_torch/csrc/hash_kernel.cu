@@ -1,4 +1,8 @@
-// K1 on Hopper: the fused front half of the sketch step.
+// The two hash kernels of the sketch path on Hopper, K1 and K2. They share
+// the window math below (Window, roll, hash_window, t1ha2, mm_hash64), which
+// must exist once, as in the TPU package (hash_kernel.py, _advance_hash).
+//
+// K1: the fused front half of the sketch step.
 //
 // Replaces the TPU Pallas kernel
 // hypergen_tpu/ops/pallas/hash_kernel.py::_rolling_packed_kernel, launched
@@ -29,6 +33,37 @@
 // memory is later work. The TPU launcher's word relayout (cell-major
 // transpose) and its unroll factor have no counterpart here: each thread
 // indexes the packed row directly, and the compiler schedules the loop.
+//
+// K2: the position-dense chunk hash (see rolling_chunks_kernel below).
+//
+// Replaces the TPU Pallas kernel
+// hypergen_tpu/ops/pallas/hash_kernel.py:158 (_rolling_kernel), launched by
+// hash_chunks_pallas, whose caller on this path is the sequence-parallel
+// sketch (parallel/seqpar.py). Input: uint8 codes [nc, C + k - 1], a code
+// >= 4 invalid. Output, position-dense: h u64 [nc, C] and keep u8 [nc, C];
+// keep = (the k codes of the window are all valid) && h < threshold, and h
+// holds the U64_MAX sentinel where keep is false. A run counter, reset by an
+// invalid code, replaces K1's optimistic hashing plus run postfilter; a
+// window whose run is short is not hashed at all.
+//
+// Geometry: one thread per (chunk, cell) of kChunkLsub = 64 positions (the
+// last cell of a chunk may be shorter), plus a k-1 warm-up that only rolls.
+// The output is dense in positions, so the geometry cannot change it; 64
+// positions give 2048 cells for a 131072-position chunk, 2M threads at the
+// full-size 1024 chunks (about eight waves of the card's 270K resident
+// threads), and keep the warm-up at (k-1)/64 of the rolls.
+//
+// What bounds it: at 1024 x 131072 positions and k=21 the function reads
+// 134 MB of codes and writes 1.07 GB of hashes and 134 MB of keep flags,
+// 1.34 GB in all, 0.40 ms at 3.35 TB/s; it does about 50 32-bit integer
+// multiply-adds per hashed position (ten 64-bit products of t1ha2 at k=21:
+// six low halves of three each, four high halves of about eight), 6.7 G in
+// all, 0.40 ms at the 16.7 T/s of 132 SMs x 64 INT32 lanes at 1.98 GHz.
+// Bytes bound, by under one per cent: on chip_smoke.py's 2^27 bp genome the
+// 1.342 GB take 0.4007 ms and the 6.69 G multiply-adds (one hash for each
+// window whose k codes are valid) 0.3995 ms. Each thread writes 64
+// consecutive hashes, so the stores of a warp land 512 bytes apart and do
+// not coalesce; staging them through shared memory is later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -93,6 +128,17 @@ struct Shape {
   int rc_shift;       // 2k-2: where the newest rc base enters
   int new_shift;      // 8*((k-1)%8): where the newest fwd byte enters
 };
+
+template <int NW>
+__device__ __forceinline__ Shape make_shape(int k) {
+  Shape sh;
+  sh.kmask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1;
+  const int top_bytes = k - 8 * (NW - 1);
+  sh.top_mask = top_bytes == 8 ? ~0ull : (1ull << (8 * top_bytes)) - 1;
+  sh.rc_shift = 2 * k - 2;
+  sh.new_shift = 8 * ((k - 1) % 8);
+  return sh;
+}
 
 template <int NW>
 __device__ __forceinline__ void roll(Window<NW>& st, uint32_t cb,
@@ -169,12 +215,7 @@ __global__ void __launch_bounds__(128) rolling_packed_kernel(
                          : lsub;
   int cnt = 0;
   if (n_emit > 0) {
-    Shape sh;
-    sh.kmask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1;
-    const int top_bytes = k - 8 * (NW - 1);
-    sh.top_mask = top_bytes == 8 ? ~0ull : (1ull << (8 * top_bytes)) - 1;
-    sh.rc_shift = 2 * k - 2;
-    sh.new_shift = 8 * ((k - 1) % 8);
+    const Shape sh = make_shape<NW>(k);
     const bool ascii = !mmhash;
 
     const uint32_t* row = words + b * W;
@@ -196,6 +237,51 @@ __global__ void __launch_bounds__(128) rolling_packed_kernel(
     }
   }
   out_cnt[bn * cells + cell] = cnt;
+}
+
+
+constexpr int kChunkLsub = 64;  // K2 positions per thread
+
+// K2: one thread per (chunk, cell); cell c of a chunk owns the positions
+// [c*kChunkLsub, min((c+1)*kChunkLsub, C)).
+template <int NW>
+__global__ void __launch_bounds__(128) rolling_chunks_kernel(
+    const uint8_t* __restrict__ codes, int C, int k, int cells,
+    uint64_t seed, uint64_t threshold, bool canonical, bool mmhash,
+    long long n_threads, uint64_t* __restrict__ out_h,
+    uint8_t* __restrict__ out_keep) {
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (tid >= n_threads) return;
+  const int cell = static_cast<int>(tid % cells);
+  const long long chunk = tid / cells;
+  const int lp0 = cell * kChunkLsub;
+  const int n = C - lp0 < kChunkLsub ? C - lp0 : kChunkLsub;
+  const Shape sh = make_shape<NW>(k);
+  const bool ascii = !mmhash;
+
+  const uint8_t* in = codes + chunk * (C + k - 1) + lp0;
+  Window<NW> st;
+  int run = 0;  // valid codes ending here, within this cell's window
+  for (int t = 0; t < k - 1; ++t) {
+    const uint32_t c = __ldg(in + t);
+    run = c < 4u ? run + 1 : 0;
+    roll(st, c & 3u, sh, ascii);
+  }
+  uint64_t* oh = out_h + chunk * C + lp0;
+  uint8_t* ok = out_keep + chunk * C + lp0;
+  for (int t = 0; t < n; ++t) {
+    const uint32_t c = __ldg(in + k - 1 + t);
+    run = c < 4u ? run + 1 : 0;
+    roll(st, c & 3u, sh, ascii);
+    uint64_t h = ~0ull;
+    if (run >= k) {
+      const uint64_t v = hash_window(st, k, seed, canonical, mmhash);
+      if (v < threshold) h = v;
+    }
+    oh[t] = h;
+    ok[t] = h != ~0ull;
+  }
 }
 
 }  // namespace
@@ -225,6 +311,39 @@ extern "C" int hg_hash_packed_rows(
   rolling_packed_kernel<NW><<<grid, kBlock, 0, s>>>(                        \
       w, W, np, n_chunks, C, k, seed, threshold, canonical != 0,            \
       mmhash != 0, cells, cap, n_threads, oh, op, oc)
+  switch ((k + 7) / 8) {
+    case 1: HG_LAUNCH(1); break;
+    case 2: HG_LAUNCH(2); break;
+    case 3: HG_LAUNCH(3); break;
+    case 4: HG_LAUNCH(4); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef HG_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry point of K2, bound with ctypes. Pointers are device pointers
+// of contiguous tensors: codes u8 [nc, C + k - 1]; out_h u64 and out_keep u8
+// [nc, C], every element written by the kernel. Launches on `stream`
+// without synchronising and returns cudaGetLastError().
+extern "C" int hg_hash_chunks(const void* codes, long long nc, int C, int k,
+                              unsigned long long seed,
+                              unsigned long long threshold, int canonical,
+                              int mmhash, void* out_h, void* out_keep,
+                              void* stream) {
+  const int cells = (C + kChunkLsub - 1) / kChunkLsub;
+  const long long n_threads = nc * cells;
+  constexpr int kBlock = 128;
+  const unsigned grid =
+      static_cast<unsigned>((n_threads + kBlock - 1) / kBlock);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* in = static_cast<const uint8_t*>(codes);
+  auto* oh = static_cast<uint64_t*>(out_h);
+  auto* ok = static_cast<uint8_t*>(out_keep);
+#define HG_LAUNCH(NW)                                                       \
+  rolling_chunks_kernel<NW><<<grid, kBlock, 0, s>>>(                        \
+      in, C, k, cells, seed, threshold, canonical != 0, mmhash != 0,        \
+      n_threads, oh, ok)
   switch ((k + 7) / 8) {
     case 1: HG_LAUNCH(1); break;
     case 2: HG_LAUNCH(2); break;

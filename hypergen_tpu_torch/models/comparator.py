@@ -15,7 +15,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from hypergen_tpu.io.sketch_db import ShardedDB
+from hypergen_tpu_torch.io.sketch_db import ShardedDB
 from hypergen_tpu_torch.ops.ani import dot_i16_exact, dot_threshold_compact
 
 log = logging.getLogger("hypergen")
@@ -85,7 +85,7 @@ def _tile_below_diagonal(gi_min: int, gj_min: int, tn: int) -> bool:
 class Comparator:
     """Tiled exact int32 dot matrices between sketch DBs on one device."""
 
-    def __init__(self, ksize: int, device, tile_m: int = 2048,
+    def __init__(self, ksize: int, device="cuda", tile_m: int = 2048,
                  tile_n: int = 2048):
         self.ksize = ksize
         self.device = torch.device(device)

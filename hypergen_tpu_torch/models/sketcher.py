@@ -18,6 +18,13 @@ K1 hashes every position as if valid; windows that touch an N run, a
 record separator or the padding are removed exactly by the postfilter. The
 HV is a sum over the *set* of surviving hashes, so the result does not
 depend on batching, bucketing or the cell geometry.
+
+A genome whose bucket reaches ``seqpar_min_chunks`` chunks (~67 Mbp at the
+default chunk size: plant and fungal assemblies) leaves the batches, as in
+the JAX package: with more than one CUDA card it is split over them
+(``parallel.seqpar``, K2); otherwise it streams through the same K1 step in
+fixed-size tiles whose survivor sets are merged on the host and encoded
+once (``sketch_packed_tiled``).
 """
 
 from __future__ import annotations
@@ -25,14 +32,18 @@ from __future__ import annotations
 import collections
 import logging
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from hypergen_tpu.io.fastx import PackedGenome, read_genome_packed
-from hypergen_tpu.io.sketch_db import FileSketch
-from hypergen_tpu.params import SketchParams
+from hypergen_tpu_torch.io.fastx import (
+    PackedGenome,
+    codes_from_packed,
+    read_genome_packed,
+)
+from hypergen_tpu_torch.io.sketch_db import FileSketch
+from hypergen_tpu_torch.params import SketchParams
 from hypergen_tpu_torch.ops.compact import compact_masked
 from hypergen_tpu_torch.ops.encode import encode_hv, hv_norm2_i32, hv_to_i16
 from hypergen_tpu_torch.ops.kernels.hash_kernel import hash_packed_rows
@@ -41,9 +52,6 @@ log = logging.getLogger("hypergen")
 
 _NO_RUN = np.int32(0x7FFFFFFF)  # start of a padding run row: never reached
 ENCODE_BLOCK = 512  # hashes per encode block: bounds the [B, n, D] bit tensor
-# genomes whose bucket reaches this many chunks (~67 Mbp at the default
-# chunk size) run alone, as a one-row batch
-ONE_ROW_MIN_CHUNKS = 512
 
 
 def packed_row_words(n_chunks: int, chunk_positions: int) -> int:
@@ -113,13 +121,15 @@ class Sketcher:
     def __init__(
         self,
         params: SketchParams,
-        device="cpu",
+        device="cuda",
         chunk_positions: int = 1 << 17,
         batch: int = 8,
+        seqpar_min_chunks: int = 512,
     ):
         params.validate()
         self.params = params
         self.device = torch.device(device)
+        self.seqpar_min_chunks = int(seqpar_min_chunks)
         self.C = int(chunk_positions)
         self.cells = packed_cells(self.C)
         if not self.cells:
@@ -176,15 +186,12 @@ class Sketcher:
             )
             cap = min(_next_pow2(max_count), self.lsub)
 
-    def sketch_batch(self, genomes: List[PackedGenome]) -> List[Dict[str, object]]:
-        """Sketch up to `batch` genomes in one step on the device.
-
-        Returns per genome {"hv": int16 [D] numpy, "norm2": int,
-        "n_hashes": int}.
-        """
-        if not genomes:
-            return []
-        n_chunks = max(self._bucket(g.length) for g in genomes)
+    def _distinct(
+        self, genomes: List[PackedGenome], n_chunks: int
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The K1 step up to the distinct set: (sorted h int64 [B, N],
+        first-occurrence mask bool [B, N]) on the device, for genomes that
+        fit in n_chunks chunks."""
         words, runs, n_pos = (
             torch.from_numpy(a).to(self.device)
             for a in self._prepare_batch(genomes, n_chunks)
@@ -193,7 +200,12 @@ class Sketcher:
         (h, pos), counts = compact_masked(valid, h, pos)
         filled = torch.arange(h.shape[1], device=h.device) < counts[:, None]
         clean = filled & filter_positions_by_runs(pos, runs, self.params.ksize)
-        hs, first = distinct_hashes(h, clean)
+        return distinct_hashes(h, clean)
+
+    def _encode(self, hs: torch.Tensor, first: torch.Tensor
+                ) -> List[Dict[str, object]]:
+        """Encode each row's distinct hashes: per row {"hv": int16 [D]
+        numpy, "norm2": int, "n_hashes": int}."""
         hv16 = hv_to_i16(
             encode_hv(hs, first, self.params.hv_d, block=ENCODE_BLOCK)
         )
@@ -204,8 +216,80 @@ class Sketcher:
         return [
             {"hv": hv16[i], "norm2": int(norm2[i]),
              "n_hashes": int(n_hashes[i])}
-            for i in range(len(genomes))
+            for i in range(hv16.shape[0])
         ]
+
+    def sketch_batch(self, genomes: List[PackedGenome]) -> List[Dict[str, object]]:
+        """Sketch up to `batch` genomes in one step on the device.
+
+        Returns per genome {"hv": int16 [D] numpy, "norm2": int,
+        "n_hashes": int}.
+        """
+        if not genomes:
+            return []
+        n_chunks = max(self._bucket(g.length) for g in genomes)
+        return self._encode(*self._distinct(genomes, n_chunks))
+
+    # -- single-device huge genomes: bounded fixed-shape tiling -------------
+
+    def _tile_genome(self, g: PackedGenome, tile_chunks: int
+                     ) -> List[PackedGenome]:
+        """Split a genome into tiles of tile_chunks chunks, each covering a
+        disjoint k-mer start range [t*TC, (t+1)*TC) plus the k-1 halo.
+        Tile t has length n_pos_t + k - 1, a byte-aligned packed2 slice
+        (TC % 4 == 0), and its parent's runs clipped and shifted into tile
+        coordinates."""
+        k = self.params.ksize
+        TC = tile_chunks * self.C
+        total_pos = max(g.length - k + 1, 0)
+        n_tiles = max(-(-total_pos // TC), 1)
+        tiles = []
+        for t in range(n_tiles):
+            start = t * TC
+            L_t = min(total_pos - start, TC) + k - 1
+            p2 = g.packed2[start // 4 : start // 4 + -(-L_t // 4)]
+            lo = np.clip(g.runs[:, 0] - start, 0, L_t)
+            hi = np.clip(g.runs[:, 1] - start, 0, L_t)
+            keep = hi > lo
+            runs_t = np.stack([lo[keep], hi[keep]], axis=-1).astype(np.int32)
+            tiles.append(PackedGenome(p2, runs_t, L_t))
+        return tiles
+
+    def sketch_packed_tiled(
+        self, g: PackedGenome, tile_chunks: Optional[int] = None
+    ) -> Dict[str, object]:
+        """Sketch ONE huge genome on ONE device in bounded memory.
+
+        Tiles of tile_chunks chunks (default seqpar_min_chunks // 8) go
+        through the K1 step `batch` at a time; each tile's distinct survivor hashes come to the host, whose
+        np.unique union is the genome's distinct set (dedup composes as set
+        union), encoded once on the device (the bundle is a sum). The result
+        equals the one-shot step's bit for bit. Device memory is
+        O(batch * tile_chunks * C), host memory O(survivors).
+        """
+        if tile_chunks is None:
+            tile_chunks = max(1, self.seqpar_min_chunks // 8)
+        tiles = self._tile_genome(g, tile_chunks)
+        parts = [np.zeros(0, dtype=np.int64)]
+        for lo in range(0, len(tiles), self.batch):
+            hs, first = self._distinct(tiles[lo : lo + self.batch], tile_chunks)
+            hs, first = hs.cpu().numpy(), first.cpu().numpy()
+            parts.extend(hs[i][first[i]] for i in range(hs.shape[0]))
+        merged = np.unique(np.concatenate(parts).view(np.uint64)).view(np.int64)
+        h = torch.from_numpy(merged).to(self.device)[None]
+        return self._encode(h, torch.ones_like(h, dtype=torch.bool))[0]
+
+    def _sketch_huge(self, g: PackedGenome) -> Dict[str, object]:
+        """A genome at or above seqpar_min_chunks: split over the CUDA cards
+        when there are several, else tiled on this device."""
+        if self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            # imported here: seqpar imports this module
+            from hypergen_tpu_torch.parallel.seqpar import sketch_codes_seqpar
+
+            return sketch_codes_seqpar(
+                codes_from_packed(g), self.params, chunk_positions=self.C
+            )
+        return self.sketch_packed_tiled(g)
 
     def _to_filesketch(self, res: Dict[str, object], name: str) -> FileSketch:
         p = self.params
@@ -229,7 +313,7 @@ class Sketcher:
         Same-bucket genomes within the window are grouped into batches;
         partial groups run at the end.
         """
-        from hypergen_tpu.utils.progress import ProgressBar
+        from hypergen_tpu_torch.utils.progress import ProgressBar
 
         paths = list(paths)
         pb = ProgressBar(len(paths))
@@ -260,8 +344,10 @@ class Sketcher:
                 g = fut.result()
                 fill()
                 bucket = self._bucket(g.length)
-                if bucket >= ONE_ROW_MIN_CHUNKS:
-                    run([(i, g)])
+                if bucket >= self.seqpar_min_chunks:
+                    results[i] = self._to_filesketch(
+                        self._sketch_huge(g), str(paths[i]))
+                    pb.inc()
                     continue
                 by_bucket.setdefault(bucket, []).append((i, g))
                 if len(by_bucket[bucket]) >= self.batch:

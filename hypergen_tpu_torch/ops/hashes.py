@@ -17,7 +17,7 @@ from typing import Sequence
 
 import torch
 
-from hypergen_tpu.params import (
+from hypergen_tpu_torch.params import (
     T1HA_PRIME_0,
     T1HA_PRIME_1,
     T1HA_PRIME_2,

@@ -1,10 +1,11 @@
-"""Build the CUDA sources under ``csrc/`` and load them with ctypes.
+"""Build the sources under ``csrc/`` and load them with ctypes.
 
-Each kernel file has a plain C entry point, so ``nvcc`` builds it in
-seconds without PyTorch's headers. The library is built at first use into
-``hypergen_tpu_torch/_build/``, under a name keyed by a hash of the source
-and the flags, so an edited source always rebuilds. Nothing is built or
-loaded when a module is imported.
+Each source has a plain C entry point, so it builds in seconds without
+PyTorch's headers: a CUDA file (``<name>.cu``) with ``nvcc`` for sm_90a, a
+host file (``<name>.cpp``, the FASTA parser) with ``g++``. The library is
+built at first use into ``hypergen_tpu_torch/_build/``, under a name keyed
+by a hash of the source and the flags, so an edited source always rebuilds.
+Nothing is built or loaded when a module is imported.
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# no -march=native: the build directory is keyed by source, not by host
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-Wall")
+GXX_LIBS = ("-lz",)
 
 
 def _nvcc() -> str:
@@ -37,15 +41,36 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: the native FASTA parser needs it")
+
+
+def _source(name: str) -> Path:
+    for suffix in (".cu", ".cpp"):
+        src = CSRC_DIR / f"{name}{suffix}"
+        if src.exists():
+            return src
+    raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
+
+
+def _flags(src: Path):
+    return NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS + GXX_LIBS
+
+
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives once built."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the library of ``csrc/<name>.cu`` or ``.cpp`` lives once built."""
+    src = _source(name)
+    flags = " ".join(_flags(src)).encode()
+    digest = hashlib.sha256(src.read_bytes() + flags).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists; return its path.
+    """Compile ``csrc/<name>.cu`` or ``.cpp`` unless its library exists;
+    return its path.
 
     The compiler writes to a temporary name that is renamed into place, so
     a concurrent or interrupted build never leaves a half-written library.
@@ -53,17 +78,20 @@ def build(name: str) -> Path:
     out = library_path(name)
     if out.exists():
         return out
-    nvcc = _nvcc()
+    src = _source(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+    if src.suffix == ".cu":
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    else:
+        cmd = [_gxx(), *GXX_FLAGS, "-o", tmp, str(src), *GXX_LIBS]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed for {name}.cu ({res.returncode}):\n"
-                f"{res.stdout}{res.stderr}"
+                f"{Path(cmd[0]).name} failed for {src.name} "
+                f"({res.returncode}):\n{res.stdout}{res.stderr}"
             )
         os.replace(tmp, out)
     finally:
@@ -74,5 +102,5 @@ def build(name: str) -> Path:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """Build if needed, then load ``csrc/<name>.cu`` (once per process)."""
+    """Build if needed, then load ``csrc/<name>`` (once per process)."""
     return ctypes.CDLL(str(build(name)))

@@ -1,13 +1,17 @@
-"""K1: the fused packed hash kernel, its wrapper and its plain version.
+"""The hash kernels K1 and K2: their wrappers and their plain versions.
 
-Counterpart of ``hypergen_tpu.ops.pallas.hash_kernel.hash_packed_rows_pallas``
-with the same arguments, cell geometry and output layout, so that with the
-same ``cells`` every output is bit-identical to the TPU kernel's, slot for
-slot. Hashes come back as int64 bit patterns instead of (hi, lo) u32 pairs.
+K1, ``hash_packed_rows``: counterpart of
+``hypergen_tpu.ops.pallas.hash_kernel.hash_packed_rows_pallas`` with the
+same arguments, cell geometry and output layout, so that with the same
+``cells`` every output is bit-identical to the TPU kernel's, slot for slot.
 
-The kernel (``csrc/hash_kernel.cu``) runs for a CUDA tensor; the plain
-PyTorch version runs for a CPU tensor. A CUDA tensor never reaches the
-plain version: if the kernel cannot be built or launched, the call raises.
+K2, ``hash_chunks``: counterpart of ``hash_chunks_pallas``, position-dense
+hashes of code chunks with a k-1 halo, for the sequence-parallel sketch.
+
+Hashes come back as int64 bit patterns instead of (hi, lo) u32 pairs. Both
+kernels live in ``csrc/hash_kernel.cu`` and run for a CUDA tensor; the
+plain PyTorch versions run for a CPU tensor. A CUDA tensor never reaches a
+plain version: if a kernel cannot be built or launched, the call raises.
 """
 
 from __future__ import annotations
@@ -94,27 +98,37 @@ def _rows_plain(packed_words, n_pos, n_chunks, C, ksize, seed, threshold,
     return out_h, out_pos, out_cnt
 
 
-@functools.lru_cache(maxsize=None)
-def _entry():
-    """The kernel's C entry point, built and bound on first use."""
-    from hypergen_tpu_torch.ops.kernels import build
-
-    fn = build.load("hash_kernel").hg_hash_packed_rows
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
+_ARGTYPES = {
+    "hg_hash_packed_rows": [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong,
         ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p,
-    ]
+    ],
+    "hg_hash_chunks": [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    """A kernel's C entry point, built and bound on first use."""
+    from hypergen_tpu_torch.ops.kernels import build
+
+    fn = getattr(build.load("hash_kernel"), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = _ARGTYPES[name]
     return fn
 
 
 def _rows_cuda(packed_words, n_pos, n_chunks, C, ksize, seed, threshold,
                canonical, method, cells, cap):
     """Launch csrc/hash_kernel.cu; same raw layout as _rows_plain."""
-    fn = _entry()
+    fn = _entry("hg_hash_packed_rows")
     B, W = packed_words.shape
     dev = packed_words.device
     out_h = torch.full((B * n_chunks, cap, cells), -1, dtype=torch.int64,
@@ -221,3 +235,110 @@ def _run(rows_fn, packed_words, n_pos, n_chunks, C, ksize, seed, threshold,
     pos = torch.where(valid, out_pos.reshape(B, S) + chunk_off, -1)
     cell_max = out_cnt.reshape(B, -1).amax(dim=-1)
     return h, pos, valid, cell_max
+
+
+# -- K2 -----------------------------------------------------------------------
+
+PLAIN_POSITIONS = 1 << 22  # k-mer positions per pass of hash_chunks_plain
+
+
+def _chunks_plain(codes, ksize, seed, threshold, canonical, method):
+    """Plain PyTorch K2: hash_kmer_positions with the U64_MAX sentinel
+    where a window is not kept, a bounded number of chunks at a time."""
+    nc, width = codes.shape
+    C = width - ksize + 1
+    out_h = torch.empty((nc, C), dtype=torch.int64, device=codes.device)
+    out_keep = torch.empty((nc, C), dtype=torch.bool, device=codes.device)
+    step = max(1, PLAIN_POSITIONS // C)
+    for lo in range(0, nc, step):
+        h, keep = hash_kmer_positions(
+            codes[lo : lo + step], ksize, seed, threshold,
+            canonical=canonical, method=method,
+        )
+        out_h[lo : lo + step] = torch.where(keep, h, -1)
+        out_keep[lo : lo + step] = keep
+    return out_h, out_keep
+
+
+def _chunks_cuda(codes, ksize, seed, threshold, canonical, method):
+    """Launch K2 of csrc/hash_kernel.cu; same outputs as _chunks_plain."""
+    fn = _entry("hg_hash_chunks")
+    nc, width = codes.shape
+    C = width - ksize + 1
+    dev = codes.device
+    out_h = torch.empty((nc, C), dtype=torch.int64, device=dev)
+    out_keep = torch.empty((nc, C), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(
+            codes.data_ptr(), nc, C, ksize, seed & U64_MASK, threshold,
+            int(canonical), int(method == "mmhash"), out_h.data_ptr(),
+            out_keep.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"chunk hash kernel launch failed: CUDA error {err}")
+    hash_chunks.launches += 1
+    return out_h, out_keep
+
+
+def _chunks_for(device: torch.device):
+    """K2 for a CUDA device, its plain version for the CPU; no fallback
+    from one to the other."""
+    if device.type == "cuda":
+        return _chunks_cuda
+    if device.type == "cpu":
+        return _chunks_plain
+    raise ValueError(f"no chunk hash kernel for device {device}")
+
+
+def _run_chunks(chunks_fn, codes, ksize, seed, threshold, canonical, method):
+    if method not in ("t1ha2", "mmhash"):
+        raise ValueError(f"unknown sketch method {method!r}")
+    if not 1 <= ksize <= 32:
+        raise ValueError("ksize must be in [1, 32]")
+    if codes.dtype != torch.uint8 or codes.dim() != 2:
+        raise ValueError("codes must be uint8 [nc, C + k - 1]")
+    if not codes.is_contiguous():
+        raise ValueError("codes must be contiguous")
+    if codes.shape[0] < 1 or codes.shape[1] < ksize:
+        raise ValueError(
+            f"need at least one chunk of at least k={ksize} codes, "
+            f"got {tuple(codes.shape)}"
+        )
+    return chunks_fn(codes, ksize, seed, threshold, canonical, method)
+
+
+def hash_chunks(
+    codes: torch.Tensor,
+    ksize: int,
+    seed: int,
+    threshold: int,
+    canonical: bool = True,
+    method: str = "t1ha2",
+):
+    """Position-dense k-mer hashes of code chunks (K2).
+
+    codes: uint8 [nc, C + k - 1], chunk i's C k-mer starts plus a k-1 halo;
+    a code >= 4 is invalid. Returns (h int64 [nc, C], keep bool [nc, C]):
+    keep = the window's k codes are valid and h < threshold; where keep is
+    false, h holds the U64_MAX sentinel (-1). This is the contract of
+    ``hash_chunks_pallas``, sentinel included. Launches the CUDA kernel for
+    a CUDA tensor and the plain version for a CPU tensor.
+    """
+    return _run_chunks(_chunks_for(codes.device), codes, ksize, seed,
+                       threshold, canonical, method)
+
+
+hash_chunks.launches = 0  # CUDA launches, for showing the path ran
+
+
+def hash_chunks_plain(
+    codes: torch.Tensor,
+    ksize: int,
+    seed: int,
+    threshold: int,
+    canonical: bool = True,
+    method: str = "t1ha2",
+):
+    """The plain PyTorch version of hash_chunks, on any device."""
+    return _run_chunks(_chunks_plain, codes, ksize, seed, threshold,
+                       canonical, method)

@@ -2,13 +2,16 @@
 package's. Tolerance: equal int32 dots and equal (i, j, float32 ANI) rows.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from hypergen_tpu.io.sketch_db import ShardedDB
+from hypergen_tpu.io import sketch_db as jax_sketch_db
 from hypergen_tpu.models.comparator import Comparator as JaxComparator
+from hypergen_tpu_torch.io.sketch_db import ShardedDB
 from hypergen_tpu.ops.ani import dot_i16_exact as jax_dot
 from hypergen_tpu_torch.models.comparator import Comparator, db_to_tensors
 from hypergen_tpu_torch.ops.ani import dot_i16_exact
@@ -48,6 +51,11 @@ def _db(seed, n, hv_d=512, pool=1200, span=300, names="g"):
                      hvs=hvs, norms=norms)
 
 
+def _jax_db(db):
+    """The JAX package's ShardedDB holding the same fields as the port's."""
+    return jax_sketch_db.ShardedDB(**dataclasses.asdict(db))
+
+
 @pytest.mark.parametrize("symmetric", [True, False])
 @pytest.mark.parametrize("threshold", [0.0, 85.0, 95.0])
 def test_pair_paths_match_jax(symmetric, threshold):
@@ -55,11 +63,12 @@ def test_pair_paths_match_jax(symmetric, threshold):
     qry = ref if symmetric else _db(2, 7, names="q")
     jc = JaxComparator(ksize=21, tile_m=4, tile_n=4, use_mxu=False)
     tc = Comparator(ksize=21, device="cpu", tile_m=4, tile_n=4)
+    jref, jqry = _jax_db(ref), _jax_db(qry)
     if threshold >= 50:
-        want = jc.ani_pairs_thresholded(ref, qry, symmetric, threshold)
+        want = jc.ani_pairs_thresholded(jref, jqry, symmetric, threshold)
         got = tc.ani_pairs_thresholded(ref, qry, symmetric, threshold)
     else:
-        want = jc.ani_pairs_streamed(ref, qry, symmetric, threshold)
+        want = jc.ani_pairs_streamed(jref, jqry, symmetric, threshold)
         got = tc.ani_pairs_streamed(ref, qry, symmetric, threshold)
     for a, b in zip(got[:3], want[:3]):
         np.testing.assert_array_equal(a, b)

@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from hypergen_tpu.io.fastx import INVALID, packed_from_codes
-from hypergen_tpu.params import SketchParams, fracminhash_threshold
+from hypergen_tpu_torch.io.fastx import INVALID, packed_from_codes
+from hypergen_tpu_torch.params import SketchParams, fracminhash_threshold
 from hypergen_tpu_torch.models.sketcher import Sketcher, packed_row_words
 from hypergen_tpu_torch.ops.kernels import hash_kernel as hk
 
@@ -71,3 +71,50 @@ def test_cuda_sketch_matches_cpu(cuda):
     for a, b in zip(got, want):
         assert a["n_hashes"] == b["n_hashes"] and a["norm2"] == b["norm2"]
         np.testing.assert_array_equal(a["hv"], b["hv"])
+
+
+@pytest.mark.cuda
+def test_cuda_chunk_kernel_matches_plain(cuda):
+    """K2 against its plain version on the card, every hash (sentinel
+    included) and keep flag, with a chunk width that leaves a short last
+    cell and an all-invalid chunk."""
+    rng = np.random.default_rng(6)
+    for k, method, canonical, scaled in ((21, "t1ha2", True, 2),
+                                         (32, "t1ha2", True, 3),
+                                         (15, "mmhash", True, 2),
+                                         (8, "t1ha2", False, 1)):
+        codes = rng.integers(0, 4, size=(3, 1000 + k - 1)).astype(np.uint8)
+        codes[rng.random(codes.shape) < 0.02] = INVALID
+        codes[2] = INVALID
+        codes = torch.from_numpy(codes).to(cuda)
+        args = (codes, k, 123, fracminhash_threshold(scaled))
+        kw = dict(canonical=canonical, method=method)
+        before = hk.hash_chunks.launches
+        a = hk.hash_chunks(*args, **kw)
+        b = hk.hash_chunks_plain(*args, **kw)
+        assert hk.hash_chunks.launches == before + 1
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+        assert a[1].any() and not a[1][2].any()
+
+
+@pytest.mark.cuda
+def test_cuda_huge_genome_routes_match_cpu(cuda):
+    """seqpar over [card] * 3 and the tiled route on the card equal their
+    CPU runs and the one-shot step."""
+    from hypergen_tpu_torch.parallel.seqpar import sketch_codes_seqpar
+
+    rng = np.random.default_rng(7)
+    codes = rng.integers(0, 4, size=30_000).astype(np.uint8)
+    codes[4090:4110] = INVALID
+    g = packed_from_codes(codes)
+    p = SketchParams(scaled=20, hv_d=1024)
+    want = Sketcher(p, device="cpu", chunk_positions=2048).sketch_batch([g])[0]
+    got = [
+        sketch_codes_seqpar(codes, p, [cuda] * 3, chunk_positions=1024),
+        sketch_codes_seqpar(codes, p, ["cpu"] * 3, chunk_positions=1024),
+        Sketcher(p, device=cuda, chunk_positions=2048).sketch_packed_tiled(g, 2),
+    ]
+    for a in got:
+        assert a["n_hashes"] == want["n_hashes"] and a["norm2"] == want["norm2"]
+        np.testing.assert_array_equal(a["hv"], want["hv"])

@@ -8,12 +8,12 @@ import numpy as np
 import pytest
 import torch
 
-from hypergen_tpu.io.fastx import packed_from_codes
 from hypergen_tpu.models.sketcher import packed_row_words
 from hypergen_tpu.ops import u64 as ju
 from hypergen_tpu.ops.kmers import hash_kmer_positions
 from hypergen_tpu.ops.pallas.hash_kernel import hash_packed_rows_pallas
 from hypergen_tpu.params import fracminhash_threshold
+from hypergen_tpu_torch.io.fastx import packed_from_codes
 from hypergen_tpu_torch.ops import u64 as tu
 from hypergen_tpu_torch.ops.kernels import build
 from hypergen_tpu_torch.ops.kernels import hash_kernel as hk

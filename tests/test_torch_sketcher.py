@@ -5,15 +5,18 @@ with exact validity) and through its production packed path with the Pallas
 kernel in interpret mode. Tolerance: equal hv bytes, norm2 and n_hashes.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from hypergen_tpu.io.fastx import INVALID, packed_from_codes
+from hypergen_tpu import params as jax_params
 from hypergen_tpu.models import sketcher as jax_sketcher
-from hypergen_tpu.params import SketchParams
+from hypergen_tpu_torch.io.fastx import INVALID, packed_from_codes
 from hypergen_tpu_torch.models import sketcher as ts
+from hypergen_tpu_torch.params import SketchParams
 from hypergen_tpu_torch.ops.kernels.hash_kernel import hash_packed_rows
 
 
@@ -25,8 +28,14 @@ def _random_genome(rng, L, n_runs=3):
     return codes
 
 
+def _jaxp(p):
+    """The JAX package's SketchParams equal to the port's p."""
+    return jax_params.SketchParams(**dataclasses.asdict(p))
+
+
 def _jax(p, genomes, C, **kw):
-    sk = jax_sketcher.Sketcher(p, chunk_positions=C, batch=len(genomes), **kw)
+    sk = jax_sketcher.Sketcher(_jaxp(p), chunk_positions=C,
+                               batch=len(genomes), **kw)
     return sk.collect_batch(sk.submit_batch(genomes))
 
 
@@ -127,8 +136,8 @@ def test_geometry_helpers_match_jax():
             assert ts.packed_row_words(nc, C) == jax_sketcher.packed_row_words(
                 nc, C)
     p = SketchParams()
-    a = ts.Sketcher(p)
-    b = jax_sketcher.Sketcher(p, use_pallas=True)
+    a = ts.Sketcher(p, device="cpu")
+    b = jax_sketcher.Sketcher(_jaxp(p), use_pallas=True)
     assert a.cell_cap == b.cell_cap
     for L in (21, 22, 1 << 17, (1 << 17) + 21, 4_194_304, 4_194_305 + 20):
         assert a._bucket(L) == b._bucket(L)
