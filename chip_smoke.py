@@ -5,17 +5,21 @@
 
 Run from the root of the repository on a machine with a CUDA card and the
 CUDA toolkit. It builds the hand-written kernels K1 and K2 and the native
-FASTA parser from csrc/, checks each kernel bit for bit against its plain
-PyTorch version and times both, drives `sketch` and `dist` through the
-port's CLI on 16 synthetic 4.19 Mbp genomes, and checks the card's output
-files against the port's CPU run byte for byte. Then it drives the
-huge-genome path on a synthetic 134 Mbp (2^27 bp) plant-scale genome: the
-CLI's routing, sequence parallelism over one and four shards, the tiled
-route and the one-row batch, which must agree, and it checks the
-sequence-parallel and tiled routes on the card against the CPU. Every
-phase prints one line; any failure raises and exits non-zero before the
-last line. The last two lines are the kernel table and the result, each
-one JSON object.
+FASTA parser from csrc/, prints each kernel's registers and shared memory
+(ptxas) and the static instructions of its hot loop (cuobjdump), checks each
+kernel bit for bit against its plain PyTorch version and times it alone
+(outputs allocated beforehand) and through its wrapper, drives `sketch` and
+`dist` through the port's CLI on 16 synthetic 4.19 Mbp genomes, and checks
+the card's output files against the port's CPU run byte for byte. Then it
+drives the huge-genome path on a synthetic 134 Mbp (2^27 bp) plant-scale
+genome: the CLI's routing (the one-row K1 batch), K1 at that one-row shape,
+sequence parallelism over one and four shards, the tiled route and the
+one-row batch, which must agree; it measures the one-row batch's peak
+memory at 2^27 and 2^29 bp against the slope the router assumes, and it
+checks the sequence-parallel and tiled routes and the routing on the card
+against the CPU. Every phase prints one line; any failure raises and exits
+non-zero before the last line. The last two lines are the kernel table and
+the result, each one JSON object.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ K2_CHUNKS = 32
 # on one card and on several alike
 K2_ROUTE = "seqpar on [cuda:0] x 4"
 HUGE_BP = 1 << 27  # 134,217,728 bp: between A. thaliana and rice
+BIG_BP = 1 << 29  # the one-row batch's memory slope: 2^27 to 2^29 bp
 HUGE_N_RUNS = 200
 MID_BP = 3_000_000  # card-vs-CPU genome for the huge-genome routes
 DEVICE = "cuda"
@@ -133,6 +138,64 @@ def bound(n_bytes: int, n_mads: int):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+# the low half of t1ha2's last prime, kP5, as SASS prints it: each hash
+# multiplies by it twice (the low and the high half of one 128-bit product)
+KP5_LO = "-0x7bdb0cbb"
+KERNELS = {"rolling_packed_kernel": "K1", "rolling_chunks_kernel": "K2"}
+
+
+def resources(lib, log: str):
+    """{(kernel, NW, variant): (registers, shared bytes, static instructions
+    of the hot loop per position)} of the t1ha2 kernels, from ptxas's output
+    (`log`) and the SASS of the built library. The hot loop is the smallest
+    backward-branch loop that holds (nearly) the most IMADs, the t1ha2
+    products; its positions are its hashes, two kP5 products each."""
+    import re
+
+    from hypergen_tpu_torch.ops.kernels import build
+
+    regs = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line) or \
+            re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = (int(m.group(1)),
+                          int(m.group(2)) if m.lastindex > 1 else 0)
+    sass = subprocess.run(
+        [str(Path(build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        fname = part.split("\n", 1)[0].strip()
+        kern = next((v for k, v in KERNELS.items() if k in fname), None)
+        if kern is None:
+            continue
+        ins = [(int(a, 16), op.strip()) for a, op in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", part)]
+        loops = []
+        for addr, op in ins:
+            b = re.search(r"BRA\s+(?:\S+\s+)?0x([0-9a-f]+)", op)
+            if b and int(b.group(1), 16) <= addr:
+                body = [o for a, o in ins if int(b.group(1), 16) <= a <= addr]
+                loops.append((sum("IMAD" in o for o in body), len(body),
+                              sum(KP5_LO in o for o in body) // 2))
+        top = max(i for i, _, _ in loops)
+        n_hot, hashes = min((n, h) for i, n, h in loops if i >= 0.9 * top)
+        tpl = re.search(r"ILi(\d)E((?:Lb\dE)*)E", fname)
+        flags = [int(f) for f in re.findall(r"Lb(\d)E", tpl.group(2))]
+        if flags[-1]:  # the mmhash instantiations
+            continue
+        variant = ("uint4" if flags[0] else "u32") if kern == "K1" else ""
+        r, smem = regs.get(fname, (None, None))
+        out[(kern, int(tpl.group(1)), variant)] = (r, smem,
+                                                   n_hot / max(hashes, 1))
+    return out
+
+
 def time_ms(torch, fn, runs: int = 12, warmup: int = 2) -> float:
     """Median milliseconds of fn() over `runs` timed calls (CUDA events)."""
     for _ in range(warmup):
@@ -147,6 +210,64 @@ def time_ms(torch, fn, runs: int = 12, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def occupancy(regs: int, smem: int) -> float:
+    """Resident warps per SM over the H100's 64, for blocks of 128 threads:
+    registers go to a warp in units of 256, shared memory to a block with
+    1 KB reserved, at most 32 blocks and 2048 threads an SM."""
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(65536 // (per_warp * 4), 233472 // (smem + 1024), 32, 16)
+    return blocks * 4 / 64
+
+
+def k1_times(torch, args, kw, plain_runs: int = 12):
+    """K1 on args: (kernel ms, wrapper ms, plain ms). The kernel alone runs
+    into outputs allocated beforehand (CUDA events around the launch only);
+    the wrapper allocates its outputs as the sketch step calls it."""
+    from hypergen_tpu_torch.ops.kernels.hash_kernel import (
+        hash_packed_rows, hash_packed_rows_plain, launch_rows, rows_outputs,
+    )
+
+    words, n_pos, nc = args[:3]
+    outs = rows_outputs(words.shape[0], nc, kw["cells"], kw["cap"],
+                        words.device)
+    rest = (*args[3:], kw["canonical"], kw["method"], kw["cells"], kw["cap"])
+    kernel = time_ms(torch, lambda: launch_rows(outs, words, n_pos, nc, *rest))
+    wrapper = time_ms(torch, lambda: hash_packed_rows(*args, **kw))
+    plain = time_ms(torch, lambda: hash_packed_rows_plain(*args, **kw),
+                    runs=plain_runs, warmup=min(plain_runs, 2))
+    return kernel, wrapper, plain
+
+
+def k2_times(torch, args, kw, plain_runs: int = 12):
+    """K2 on args: (kernel ms, wrapper ms, plain ms), as k1_times."""
+    from hypergen_tpu_torch.ops.kernels.hash_kernel import (
+        hash_chunks, hash_chunks_plain, launch_chunks,
+    )
+
+    codes, k = args[:2]
+    C = codes.shape[1] - k + 1
+    outs = (torch.empty((codes.shape[0], C), dtype=torch.int64,
+                        device=codes.device),
+            torch.empty((codes.shape[0], C), dtype=torch.bool,
+                        device=codes.device))
+    rest = (*args[1:], kw["canonical"], kw["method"])
+    kernel = time_ms(torch, lambda: launch_chunks(outs, codes, *rest))
+    wrapper = time_ms(torch, lambda: hash_chunks(*args, **kw))
+    plain = time_ms(torch, lambda: hash_chunks_plain(*args, **kw),
+                    runs=plain_runs, warmup=min(plain_runs, 1))
+    return kernel, wrapper, plain
+
+
+def k1_bound(words, n_pos, nc, k, cap, cells):
+    """K1's bound on these inputs: packed words and n_pos read once, the
+    slots (h, pos, valid) and cell_max written once; a t1ha2 hash for every
+    position below n_pos."""
+    B = words.shape[0]
+    S = nc * cap * cells
+    return bound(words.numel() * 4 + B * 4 + B * S * (8 + 4 + 1) + B * 4,
+                 int(n_pos.sum()) * t1ha2_mads(k))
 
 
 # -- phase 5/6 genomes --------------------------------------------------------
@@ -461,18 +582,22 @@ def k2_full_vs_plain(torch, label, chunks, args) -> int:
 
 def huge_genome(torch, tmp: Path):
     """Phase 9: one 2^27 bp genome through every huge-genome route on the
-    card; all must give the same hv, norm2 and n_hashes. K2 is held to its
-    plain version at the genome's full 1024-chunk shape and at one shard of
-    the four-shard split. Returns (the K2 launches of K2_ROUTE, the largest
-    K2 difference, K2 kernel ms, plain ms, bound) at the full shape."""
+    card; all must give the same hv, norm2 and n_hashes. The CLI routes it
+    to the one-row K1 batch on one card and on several. K1 is held to its
+    plain version and timed at that one-row shape, K2 at the genome's full
+    1024-chunk shape and at one shard of the four-shard split; the one-row
+    batch's peak memory is measured at 2^27 and 2^29 bp. Returns a dict of
+    the numbers the kernels line reports."""
     import numpy as np
 
     from hypergen_tpu_torch import SketchParams
-    from hypergen_tpu_torch.io.fastx import codes_from_packed, read_genome_packed
+    from hypergen_tpu_torch.io.fastx import (
+        codes_from_packed, packed_from_codes, read_genome_packed,
+    )
     from hypergen_tpu_torch.io.sketch_db import load_sketch
-    from hypergen_tpu_torch.models.sketcher import Sketcher
+    from hypergen_tpu_torch.models import sketcher as sm
     from hypergen_tpu_torch.ops.kernels.hash_kernel import (
-        hash_chunks, hash_chunks_plain, hash_packed_rows,
+        hash_chunks, hash_packed_rows, hash_packed_rows_plain,
     )
     from hypergen_tpu_torch.parallel.seqpar import (
         _chunk_codes, sketch_codes_seqpar,
@@ -488,10 +613,11 @@ def huge_genome(torch, tmp: Path):
     g = read_genome_packed(path)
     parse_s = time.monotonic() - t0
     p = SketchParams()
-    sk = Sketcher(p, device=DEVICE)
+    sk = sm.Sketcher(p, device=DEVICE)
     n_chunks = sk._bucket(g.length)
     check(n_chunks == HUGE_BP // CHUNK and n_chunks >= sk.seqpar_min_chunks,
           f"huge genome bucket {n_chunks}")
+    check(sk._one_row_fits(n_chunks), "the router sends 2^27 bp elsewhere")
     codes = codes_from_packed(g)
     phase(9, f"{HUGE_BP} bp genome, {g.runs.shape[0]} invalid runs, "
              f"{n_chunks} chunks: FASTA written in {write_s:.3f} s, parsed "
@@ -505,26 +631,24 @@ def huge_genome(torch, tmp: Path):
         return {"hv": s.decompress(), "norm2": s.hv_norm_2, "n_hashes": None}
 
     cards = torch.cuda.device_count()
-    # (name, route, K2 launches it makes; K1 launches iff that is 0). On
-    # one card the CLI takes the tiled route, on several it splits the
-    # genome over all of them.
+    tiles = -(-n_chunks // max(1, sk.seqpar_min_chunks // 8))
+    # (name, route, K1 launches, K2 launches it makes); the CLI takes the
+    # one-row batch on one card and on several
     routes = [
-        (f"CLI sketch ({'seqpar' if cards > 1 else 'tiled route'}, "
-         f"{cards} card(s), FASTA parse included)", cli,
-         cards if cards > 1 else 0),
+        (f"CLI sketch (one-row K1 batch, {cards} card(s), FASTA parse "
+         f"included)", cli, 1, 0),
         ("seqpar on [cuda:0]",
-         lambda: sketch_codes_seqpar(codes, p, [card]), 1),
-        (K2_ROUTE, lambda: sketch_codes_seqpar(codes, p, [card] * 4), 4),
-        ("sketch_packed_tiled",
-         lambda: sk.sketch_packed_tiled(
-             g, tile_chunks=max(1, sk.seqpar_min_chunks // 8)), 0),
-        ("one-row K1 batch", lambda: sk.sketch_batch([g])[0], 0),
+         lambda: sketch_codes_seqpar(codes, p, [card]), 0, 1),
+        (K2_ROUTE, lambda: sketch_codes_seqpar(codes, p, [card] * 4), 0, 4),
+        ("sketch_packed_tiled", lambda: sk.sketch_packed_tiled(g), 
+         -(-tiles // sk.batch), 0),
+        ("one-row K1 batch", lambda: sk.sketch_batch([g])[0], 1, 0),
     ]
     if cards > 1:
         routes.append((f"seqpar on all {cards} cards",
-                       lambda: sketch_codes_seqpar(codes, p), cards))
+                       lambda: sketch_codes_seqpar(codes, p), 0, cards))
     results, k2_launches = [], {}
-    for name, fn, want_k2 in routes:
+    for name, fn, want_k1, want_k2 in routes:
         hash_packed_rows.launches = hash_chunks.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(card)
@@ -534,8 +658,8 @@ def huge_genome(torch, tmp: Path):
         secs = time.monotonic() - t0
         k1, k2 = hash_packed_rows.launches, hash_chunks.launches
         peak = torch.cuda.max_memory_allocated(card)
-        check(k2 == want_k2 and (k1 > 0) == (want_k2 == 0),
-              f"{name}: launches K1 {k1}, K2 {k2}")
+        check(k1 == want_k1 and k2 == want_k2,
+              f"{name}: launches K1 {k1}, K2 {k2}, want {want_k1}, {want_k2}")
         k2_launches[name] = k2
         results.append(res)
         phase(9, f"{name}: {secs:.3f} s, {HUGE_BP / 1e6 / secs:.1f} Mbp/s; "
@@ -559,6 +683,65 @@ def huge_genome(torch, tmp: Path):
              f"{ref['n_hashes']} (expected ~{expect:.0f} = valid windows / "
              f"{p.scaled})")
 
+    # K1 at the one-row shape, on this genome's packed row
+    words, _, n_pos = sk._prepare_batch([g], n_chunks)
+    a1 = (torch.from_numpy(words).cuda(), torch.from_numpy(n_pos).cuda(),
+          n_chunks, CHUNK, p.ksize, p.seed, p.threshold)
+    kw1 = dict(canonical=p.canonical, method=p.sketch_method,
+               cells=sk.cells, cap=sk.cell_cap)
+    got = hash_packed_rows(*a1, **kw1)
+    want = hash_packed_rows_plain(*a1, **kw1)
+    torch.cuda.synchronize()
+    err1 = max_abs_err(torch, got, want)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)) and err1 == 0,
+          f"K1 one-row: kernel != plain (err {err1})")
+    del got, want
+    one_row = dict(zip(("ms", "wrapper_ms", "plain_ms"),
+                       k1_times(torch, a1, kw1, plain_runs=1)))
+    one_row["bound_ms"], one_row["bound_by"] = k1_bound(
+        a1[0], a1[1], n_chunks, p.ksize, sk.cell_cap, sk.cells)
+    phase(9, f"K1 at the one-row shape 1 x {n_chunks} x {CHUNK}: kernel and "
+             f"plain bit-identical; kernel alone {one_row['ms']:.4f} ms, "
+             f"wrapper {one_row['wrapper_ms']:.4f} ms, plain "
+             f"{one_row['plain_ms']:.4f} ms (CUDA events, median of 12, "
+             f"plain 1); bound {one_row['bound_ms']:.4f} ms by "
+             f"{one_row['bound_by']}")
+    del a1
+
+    # the one-row batch's peak memory, 2^27 and 2^29 bp, against the
+    # router's slope (Sketcher._one_row_fits)
+    def one_row_peak(genome):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(card)
+        torch.cuda.reset_peak_memory_stats(card)
+        t0 = time.monotonic()
+        sk.sketch_batch([genome])
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated(card) - base,
+                time.monotonic() - t0)
+
+    peak_a, secs_a = one_row_peak(g)
+    big = np.random.default_rng(SEED + 5).integers(0, 4, size=BIG_BP,
+                                                   dtype=np.uint8)
+    big = packed_from_codes(big)
+    n_big = sk._bucket(big.length)
+    check(sk._one_row_fits(n_big), "the router sends 2^29 bp elsewhere")
+    peak_b, secs_b = one_row_peak(big)
+    del big
+    slope = (peak_b - peak_a) / (n_big - n_chunks)
+    check(slope <= sm.ONE_ROW_BYTES_PER_CHUNK
+          and peak_b <= n_big * sm.ONE_ROW_BYTES_PER_CHUNK,
+          f"one-row memory {slope:.0f} B per chunk exceeds the router's "
+          f"{sm.ONE_ROW_BYTES_PER_CHUNK}")
+    phase(9, f"one-row batch peak allocated above its start: {peak_a} B at "
+             f"2^27 bp ({n_chunks} chunks, {secs_a:.3f} s), {peak_b} B at "
+             f"2^29 bp ({n_big} chunks, {secs_b:.3f} s): {slope:.0f} B per "
+             f"chunk; the router assumes {sm.ONE_ROW_BYTES_PER_CHUNK} B per "
+             f"chunk at cap {sm.ONE_ROW_CAP}, doubled, plus "
+             f"{sm.ONE_ROW_RESERVE} B free, and at most "
+             f"{sm.ONE_ROW_MAX_POSITIONS} positions")
+
     k2_args = (p.ksize, p.seed, p.threshold)
     err = k2_full_vs_plain(torch, "full shape", chunks, k2_args)
     shards = _chunk_codes(codes, p.ksize, CHUNK, 4)
@@ -566,26 +749,30 @@ def huge_genome(torch, tmp: Path):
     err = max(err, k2_full_vs_plain(
         torch, "one shard of four",
         torch.from_numpy(shards[3 * per :]).cuda(), k2_args))
-    args = (chunks, *k2_args)
-    k2_ms = time_ms(torch, lambda: hash_chunks(*args))
-    plain_ms = time_ms(torch, lambda: hash_chunks_plain(*args), runs=3,
-                       warmup=1)
-    bound_ms, bound_by = bound(n_bytes, n_mads)
-    phase(9, f"K2 at the full shape {tuple(chunks.shape)}: kernel "
-             f"{k2_ms:.4f} ms, plain {plain_ms:.4f} ms (median of 12 and 3, "
-             f"CUDA events); bound {bound_ms:.4f} ms by {bound_by} "
-             f"({n_bytes} bytes, {n_mads} multiply-adds)")
-    return k2_launches[K2_ROUTE], err, k2_ms, plain_ms, bound_ms, bound_by
+    k2 = dict(zip(("ms", "wrapper_ms", "plain_ms"), k2_times(
+        torch, (chunks, *k2_args),
+        dict(canonical=p.canonical, method=p.sketch_method), plain_runs=3)))
+    k2["bound_ms"], k2["bound_by"] = bound(n_bytes, n_mads)
+    phase(9, f"K2 at the full shape {tuple(chunks.shape)}: kernel alone "
+             f"{k2['ms']:.4f} ms, wrapper {k2['wrapper_ms']:.4f} ms, plain "
+             f"{k2['plain_ms']:.4f} ms (median of 12, plain 3, CUDA events); "
+             f"bound {k2['bound_ms']:.4f} ms by {k2['bound_by']} ({n_bytes} "
+             f"bytes, {n_mads} multiply-adds)")
+    return dict(k2_launches=k2_launches[K2_ROUTE], k2_err=err, k2=k2,
+                k1_err=err1, k1_one_row=one_row)
 
 
 def huge_card_vs_cpu(torch, tmp: Path) -> None:
     """Phase 10: the seqpar and tiled routes on the card equal their CPU
-    runs, on a 3 Mbp genome with seqpar_min_chunks lowered to 16."""
+    runs, on a 3 Mbp genome with seqpar_min_chunks lowered to 16; and
+    sketch_files routes it on the card to the one-row batch, and, with the
+    router's position limit lowered past it, to tiles on one card or seqpar
+    on several, all equal to the CPU's tiled route."""
     import numpy as np
 
     from hypergen_tpu_torch import SketchParams
     from hypergen_tpu_torch.io.fastx import codes_from_packed, read_genome_packed
-    from hypergen_tpu_torch.models.sketcher import Sketcher
+    from hypergen_tpu_torch.models import sketcher as sm
     from hypergen_tpu_torch.ops.kernels.hash_kernel import (
         hash_chunks, hash_packed_rows,
     )
@@ -603,30 +790,38 @@ def huge_card_vs_cpu(torch, tmp: Path) -> None:
     b = sketch_codes_seqpar(codes, p, ["cpu"] * 2)
     check(np.array_equal(a["hv"], b["hv"]) and a["norm2"] == b["norm2"]
           and a["n_hashes"] == b["n_hashes"], "seqpar: card != CPU")
-    # sketch_files routes the genome: on the CPU and on one card to the
-    # tiled route, on several cards to seqpar over all of them
     cards = torch.cuda.device_count()
-    routed = []
-    for dev in (DEVICE, "cpu"):
-        sk = Sketcher(p, device=dev, seqpar_min_chunks=16)
+
+    def routed(dev, want):
+        sk = sm.Sketcher(p, device=dev, seqpar_min_chunks=16)
         check(sk._bucket(g.length) >= 16, "mid genome is not routed")
         hash_packed_rows.launches = hash_chunks.launches = 0
         (fs,) = sk.sketch_files([path])
-        if dev == DEVICE:
-            check(hash_chunks.launches == cards if cards > 1
-                  else hash_packed_rows.launches > 0,
-                  "sketch_files did not take the huge-genome route")
-        routed.append(fs)
-    check(np.array_equal(routed[0].hv, routed[1].hv)
-          and routed[0].hv_norm_2 == routed[1].hv_norm_2
-          and routed[0].hv_quant_bits == routed[1].hv_quant_bits,
-          "sketch_files: card != CPU")
-    check(np.array_equal(routed[0].decompress(), a["hv"])
-          and routed[0].hv_norm_2 == a["norm2"], "sketch_files != seqpar")
+        got = (hash_packed_rows.launches > 0, hash_chunks.launches)
+        check(dev == "cpu" or got == want,
+              f"sketch_files on {dev}: launches (K1 > 0, K2) {got}, want "
+              f"{want}")
+        return fs
+
+    cpu = routed("cpu", None)  # tiled, as the JAX package routes
+    one_row = routed(DEVICE, (True, 0))
+    limit = sm.ONE_ROW_MAX_POSITIONS
+    sm.ONE_ROW_MAX_POSITIONS = 0  # past the limit: tiled or seqpar
+    try:
+        above = routed(DEVICE, (True, 0) if cards == 1 else (False, cards))
+    finally:
+        sm.ONE_ROW_MAX_POSITIONS = limit
+    for name, fs in (("one-row", one_row), ("above the limit", above)):
+        check(np.array_equal(fs.hv, cpu.hv) and fs.hv_norm_2 == cpu.hv_norm_2
+              and fs.hv_quant_bits == cpu.hv_quant_bits,
+              f"sketch_files {name}: card != CPU")
+    check(np.array_equal(cpu.decompress(), a["hv"])
+          and cpu.hv_norm_2 == a["norm2"], "sketch_files != seqpar")
     phase(10, f"{MID_BP} bp: seqpar over 2 shards, and sketch_files with "
-              f"seqpar_min_chunks=16 ({'seqpar' if cards > 1 else 'tiled'} "
-              f"on the card, tiled on the CPU), identical on the card and "
-              f"the CPU; n_hashes {a['n_hashes']}")
+              f"seqpar_min_chunks=16 (the one-row batch on the card; past "
+              f"the router's limit {'seqpar' if cards > 1 else 'tiled'} on "
+              f"the card; tiled on the CPU), identical on the card and the "
+              f"CPU; n_hashes {a['n_hashes']}")
 
 
 def main() -> None:
@@ -644,53 +839,50 @@ def main() -> None:
     print(smi, flush=True)
 
     # 2. build the kernels and the FASTA parser from the checkout's
-    # sources, both compilers at once
+    # sources, both compilers at once; the kernels' resources
     from hypergen_tpu_torch.io import fastx
     from hypergen_tpu_torch.ops.kernels import build
-    from hypergen_tpu_torch.ops.kernels.hash_kernel import (
-        hash_packed_rows, hash_packed_rows_plain,
-    )
 
     t0 = time.monotonic()
     with ThreadPoolExecutor(max_workers=2) as pool:
         libs = list(pool.map(build.build, ("hash_kernel", "fastx")))
     phase(2, f"built {', '.join(lib.name for lib in libs)} in "
              f"{time.monotonic() - t0:.2f} s; FASTA parser: {fastx.parser()}")
+    res = resources(libs[0], build.compiler_log("hash_kernel"))
+    for (kern, nw, variant), (regs, smem, per_pos) in sorted(res.items()):
+        if nw == 3:  # k 17-24, the default k=21
+            phase(2, f"{kern} NW={nw} {variant or ''} t1ha2: {regs} "
+                     f"registers, {smem} B static shared memory, occupancy "
+                     f"{occupancy(regs, smem):.3f}; {per_pos:.1f} static "
+                     f"instructions per position in the hot loop (SASS)")
+    k1_res = res[("K1", 3, "uint4")]
+    k2_res = res[("K2", 3, "")]
 
     worst, (args, kw) = kernel_vs_plain(torch)
 
-    # 4. kernel time against plain time at the production shape
-    k1_ms = time_ms(torch, lambda: hash_packed_rows(*args, **kw))
-    plain_ms = time_ms(torch, lambda: hash_packed_rows_plain(*args, **kw))
+    # 4. K1 alone, through its wrapper, and plain, at the production shape
+    k1_ms, k1_wrapper_ms, plain_ms = k1_times(torch, args, kw)
     words, n_pos, nc = args[:3]
-    B, S = words.shape[0], nc * kw["cap"] * kw["cells"]
-    k1_bound = bound(
-        words.numel() * 4 + B * 4 + B * S * (8 + 4 + 1) + B * 4,
-        int(n_pos.sum()) * t1ha2_mads(args[4]),
-    )
-    phase(4, f"K1 at {B} rows x {nc} chunks x {CHUNK}: kernel {k1_ms:.4f} "
-             f"ms, plain {plain_ms:.4f} ms (median of 12, CUDA events); "
-             f"bound {k1_bound[0]:.4f} ms by {k1_bound[1]}")
+    k1_b = k1_bound(words, n_pos, nc, args[4], kw["cap"], kw["cells"])
+    phase(4, f"K1 at {words.shape[0]} rows x {nc} chunks x {CHUNK}: kernel "
+             f"alone {k1_ms:.4f} ms, wrapper {k1_wrapper_ms:.4f} ms, plain "
+             f"{plain_ms:.4f} ms (median of 12, CUDA events); bound "
+             f"{k1_b[0]:.4f} ms by {k1_b[1]}")
 
     k2_err, (k2_args, k2_kw) = k2_vs_plain(torch)
 
-    # 8. K2 time against plain time, K2_CHUNKS chunks
-    from hypergen_tpu_torch.ops.kernels.hash_kernel import (
-        hash_chunks, hash_chunks_plain,
-    )
-
-    k2_small = time_ms(torch, lambda: hash_chunks(*k2_args, **k2_kw))
-    k2_small_plain = time_ms(torch, lambda: hash_chunks_plain(*k2_args, **k2_kw))
+    # 8. K2 alone, through its wrapper, and plain, K2_CHUNKS chunks
+    k2_small = k2_times(torch, k2_args, k2_kw)
     small_bound = bound(*k2_work(torch, k2_args[0], k2_args[1]))
-    phase(8, f"K2 at {K2_CHUNKS} chunks x {CHUNK}: kernel {k2_small:.4f} ms, "
-             f"plain {k2_small_plain:.4f} ms (median of 12, CUDA events); "
-             f"bound {small_bound[0]:.4f} ms by {small_bound[1]}")
+    phase(8, f"K2 at {K2_CHUNKS} chunks x {CHUNK}: kernel alone "
+             f"{k2_small[0]:.4f} ms, wrapper {k2_small[1]:.4f} ms, plain "
+             f"{k2_small[2]:.4f} ms (median of 12, CUDA events); bound "
+             f"{small_bound[0]:.4f} ms by {small_bound[1]}")
 
     with tempfile.TemporaryDirectory(prefix="hg_smoke_") as tmp:
         genomes, launches = main_path(torch, Path(tmp))
         card_vs_cpu(Path(tmp), genomes)
-        k2_launches, k2_full_err, k2_ms, k2_plain_ms, k2_bound, k2_by = (
-            huge_genome(torch, Path(tmp)))
+        huge = huge_genome(torch, Path(tmp))
         huge_card_vs_cpu(torch, Path(tmp))
 
     check("jax" not in sys.modules, "jax was imported")
@@ -698,19 +890,28 @@ def main() -> None:
                     and not m.startswith("hypergen_tpu_torch"))
     check(not leaked, f"modules of the JAX package were imported: {leaked}")
     phase(11, "imports: no jax, nothing of hypergen_tpu")
+    k1_one = huge["k1_one_row"]
+    k2 = huge["k2"]
     print(json.dumps({"kernels": [{
         "name": "hash_packed_rows", "route": "cuda", "source": SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
         "launches_on": "CLI sketch + dist of 16 genomes (phase 5)",
-        "max_abs_err": worst, "ms": k1_ms, "plain_ms": plain_ms,
-        "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
+        "max_abs_err": max(worst, huge["k1_err"]), "ms": k1_ms,
+        "wrapper_ms": k1_wrapper_ms, "plain_ms": plain_ms,
+        "bound_ms": k1_b[0], "bound_by": k1_b[1], "library_ms": None,
+        "registers": k1_res[0], "occupancy": occupancy(*k1_res[:2]),
+        "instr_per_position": k1_res[2],
+        "one_row": {"shape": "1 x 1024 chunks (2^27 bp)", **k1_one},
     }, {
         "name": "hash_chunks", "route": "cuda", "source": SOURCE,
-        "replaces": K2_REPLACES, "launches": k2_launches,
+        "replaces": K2_REPLACES, "launches": huge["k2_launches"],
         "launches_on": f"{K2_ROUTE}, 2^27 bp genome (phase 9)",
-        "max_abs_err": max(k2_err, k2_full_err), "ms": k2_ms,
-        "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-        "library_ms": None,
+        "max_abs_err": max(k2_err, huge["k2_err"]), "ms": k2["ms"],
+        "wrapper_ms": k2["wrapper_ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+        "library_ms": None, "registers": k2_res[0],
+        "occupancy": occupancy(*k2_res[:2]),
+        "instr_per_position": k2_res[2],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -2,16 +2,33 @@
 // the window math below (Window, roll, hash_window, t1ha2, mm_hash64), which
 // must exist once, as in the TPU package (hash_kernel.py, _advance_hash).
 //
+// The window math. A window keeps only the fwd and rc 2-bit keys (first
+// base most significant), rolled by one base per position. t1ha2 reads the
+// canonical strand's k ASCII bytes; they are built from the 2-bit key only
+// for the position being hashed: the rc key XOR the k-mask is the fwd
+// strand with base i at bits 2i (and the fwd key XOR the mask the rc strand
+// so), so one key holds the canonical strand in byte order, and a 256-entry
+// table in shared memory turns each byte of it (four codes) into four ASCII
+// bytes. This replaces rolling two NW-word byte windows at every position
+// (about 37 instructions a roll, 212 in the emitting loop, counted in the
+// SASS of the first CUDA version of these kernels, sm_90a). Both kernels
+// are bound by this hashing, not by the multiplies alone: the table lookups
+// move work from the integer ALU to the load/store pipe, which made both
+// faster on the H100 than spreading the codes to nibbles and mapping them
+// with PRMT (PERF.md).
+//
 // K1: the fused front half of the sketch step.
 //
 // Replaces the TPU Pallas kernel
 // hypergen_tpu/ops/pallas/hash_kernel.py::_rolling_packed_kernel, launched
 // by hash_packed_rows_pallas. Per cell it unpacks the 2-bit bases, rolls the
-// fwd/rc 2-bit keys and the fwd/rc ASCII byte windows, picks the canonical
-// strand (rc < fwd), hashes it with t1ha2_atonce (or mm_hash64 of the key),
-// keeps h < threshold && pos < pos_end, and writes the survivors into `cap`
-// slots per cell together with the true per-cell count. Nothing is dropped
-// silently: a count above cap makes the caller rerun with a larger cap.
+// window, picks the canonical strand (rc < fwd), hashes it with t1ha2_atonce
+// (or mm_hash64 of the key), keeps h < threshold && pos < pos_end, and
+// writes the survivors into `cap` slots per cell. It also writes what the
+// wrapper used to add in passes of its own: the empty-slot sentinels (h -1,
+// pos -1, valid 0), the chunk offset of each position, and the largest true
+// count of a cell per row (cell_max; a count above cap makes the caller
+// rerun with a larger cap, nothing is dropped silently).
 //
 // Geometry and output contract are the JAX launcher's: cell c of chunk i owns
 // the k-mer starts [c*lsub, (c+1)*lsub) of that chunk, slot s of (row-chunk
@@ -19,22 +36,23 @@
 // cells. With the same `cells` the outputs are bit-identical to the TPU
 // kernel's, slot for slot.
 //
-// What bounds it on this card: integer multiply throughput. At k=21 each
-// emitting position runs about six 64x64 products (three t1ha2 mixups, each a
-// low and a high half, plus the final mix), against 2 bits of input per
-// position, so memory traffic is negligible. Native uint64_t and __umul64hi replace the
-// TPU's u32-pair emulation. As on the TPU, the k-1 warm-up positions of a
-// cell only roll the window and are never hashed; positions past the
-// genome's end (the all-'A' padding tail) are not hashed at all.
+// What bounds it on this card: instruction issue in the hash loop. Memory
+// traffic is negligible (2 bits in per position). The bound chip_smoke.py
+// states counts the t1ha2 multiply-adds alone; the loop also rolls, builds
+// the ASCII words and tests the threshold, and those logic, shift and add
+// instructions outnumber the multiplies. So the design cuts instructions
+// per position: one thread per cell loads the cell's packed words once (per
+// 64 positions a uint4, lanes on neighbouring addresses, and a uint2 of
+// halo, when lsub is a multiple of 64; two u32 per 16 positions otherwise)
+// and shifts the codes out of registers; the k-1 warm-up positions of a
+// cell only roll the two keys, a few instructions each. Neither more
+// independent hashes in flight nor a higher occupancy changed its time on
+// the H100 (1 to 8 hashes, 48 to 80 registers; PERF.md). Resources
+// at k=21 (ptxas -v, sm_90a): 72 registers, 1 KB of shared memory, 7
+// blocks of 128 threads an SM (occupancy 0.44); 145 static SASS
+// instructions a position in the hot loop, against 212 in the first one.
 //
-// A simple layout was chosen first: one thread per cell, walking its lsub
-// positions in order. Neighbouring threads read packed words lsub/16 apart,
-// so the loads do not coalesce; staging a block's words through shared
-// memory is later work. The TPU launcher's word relayout (cell-major
-// transpose) and its unroll factor have no counterpart here: each thread
-// indexes the packed row directly, and the compiler schedules the loop.
-//
-// K2: the position-dense chunk hash (see rolling_chunks_kernel below).
+// K2: the position-dense chunk hash.
 //
 // Replaces the TPU Pallas kernel
 // hypergen_tpu/ops/pallas/hash_kernel.py:158 (_rolling_kernel), launched by
@@ -46,24 +64,32 @@
 // invalid code, replaces K1's optimistic hashing plus run postfilter; a
 // window whose run is short is not hashed at all.
 //
-// Geometry: one thread per (chunk, cell) of kChunkLsub = 64 positions (the
-// last cell of a chunk may be shorter), plus a k-1 warm-up that only rolls.
-// The output is dense in positions, so the geometry cannot change it; 64
-// positions give 2048 cells for a 131072-position chunk, 2M threads at the
-// full-size 1024 chunks (about eight waves of the card's 270K resident
-// threads), and keep the warm-up at (k-1)/64 of the rolls.
-//
-// What bounds it: at 1024 x 131072 positions and k=21 the function reads
+// What bounds it: bytes. At 1024 x 131072 positions and k=21 it reads
 // 134 MB of codes and writes 1.07 GB of hashes and 134 MB of keep flags,
-// 1.34 GB in all, 0.40 ms at 3.35 TB/s; it does about 50 32-bit integer
-// multiply-adds per hashed position (ten 64-bit products of t1ha2 at k=21:
-// six low halves of three each, four high halves of about eight), 6.7 G in
-// all, 0.40 ms at the 16.7 T/s of 132 SMs x 64 INT32 lanes at 1.98 GHz.
-// Bytes bound, by under one per cent: on chip_smoke.py's 2^27 bp genome the
-// 1.342 GB take 0.4007 ms and the 6.69 G multiply-adds (one hash for each
-// window whose k codes are valid) 0.3995 ms. Each thread writes 64
-// consecutive hashes, so the stores of a warp land 512 bytes apart and do
-// not coalesce; staging them through shared memory is later work.
+// 0.40 ms at 3.35 TB/s. Its first version (one thread per 64 positions,
+// writing its own hashes) took 9.5 ms there, nearly all of it in its
+// stores (PERF.md): each warp store touched 32 sectors 512 bytes
+// apart, a few bytes each.
+//
+// Design: one warp per strip of kStrip = 2048 consecutive positions of a
+// chunk, 4 warps a block, no block barrier after the ASCII table's. The warp
+// stages the strip's codes and their k-1 halo into shared memory with
+// 16-byte loads (lanes on neighbouring addresses). Lane l rolls positions
+// [64 l, 64 l + 64) of the strip (a warm-up of k-1 rolls, 31 % more rolls at
+// k=21, each a few instructions) and reads its codes 4 at a time: shared
+// memory holds the strip with one pad word every 16 words, so the 32 lanes,
+// 64 bytes apart, read 32 different banks. It stages its hashes for
+// kRound = 16 positions at a time (128 bytes, one line) in shared memory,
+// XOR-swizzled so that neither the lanes' 8-byte writes nor the warp's
+// 16-byte reads conflict, and the warp writes each round out as full
+// 128-byte lines with 16-byte stores on neighbouring addresses. Keep flags
+// are packed in registers and written once per strip the same way. Ragged
+// shapes: a short last strip, a C that is no multiple of anything, a row
+// start that is not 16-byte aligned (its edges then take narrower stores),
+// k from 1 to 32. With the stores coalesced, the hashing bounds it, as K1.
+// Resources at k=21 (ptxas -v, sm_90a): 79 registers, 36,560 bytes of
+// static shared memory a block, 6 blocks an SM (occupancy 0.375); 145 static
+// SASS instructions a position in the hot loop.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -77,6 +103,8 @@ constexpr uint64_t kP3 = 0xBD9CACC22C6E9571ull;
 constexpr uint64_t kP4 = 0x9C06FAF4D023E3ABull;
 constexpr uint64_t kP5 = 0xC060724A8424F345ull;
 constexpr uint64_t kP6 = 0xCB5AF53AE3AAAC31ull;
+constexpr uint32_t kAcgt = 0x54474341u;  // 'A' 'C' 'G' 'T' as bytes 0..3
+constexpr int kBlock = 128;
 
 __device__ __forceinline__ uint64_t rotr64(uint64_t v, int s) {
   return (v >> s) | (v << (64 - s));
@@ -107,26 +135,15 @@ __device__ __forceinline__ uint64_t mm_hash64(uint64_t key) {
   return key + (key << 31);
 }
 
-// 2-bit code -> ASCII base (A=65 C=67 G=71 T=84)
-__device__ __forceinline__ uint64_t ascii_of(uint32_t c) {
-  return 65u + (c << 1) + ((c >> 1) << 1) + (c == 3u ? 11u : 0u);
-}
-
-// NW = ceil(k/8) little-endian u64 words hold a k-byte ASCII window; bytes
-// at index >= k are kept zero, so the last word is already masked to k % 8
-// bytes as t1ha2's tail read expects.
-template <int NW>
 struct Window {
   uint64_t f2 = 0, r2 = 0;  // fwd / rc 2-bit keys, first base most significant
-  uint64_t fw[NW] = {};     // fwd bytes: newest at index k-1
-  uint64_t rw[NW] = {};     // rc bytes: newest at index 0
 };
 
 struct Shape {
-  uint64_t kmask;     // low 2k bits
-  uint64_t top_mask;  // bytes of the last window word that lie below k
-  int rc_shift;       // 2k-2: where the newest rc base enters
-  int new_shift;      // 8*((k-1)%8): where the newest fwd byte enters
+  uint64_t kmask;   // low 2k bits
+  uint64_t top_mask;  // bytes of the last ASCII word below k
+  int rc_shift;     // 2k-2: where the newest rc base enters
+  int k;
 };
 
 template <int NW>
@@ -136,45 +153,58 @@ __device__ __forceinline__ Shape make_shape(int k) {
   const int top_bytes = k - 8 * (NW - 1);
   sh.top_mask = top_bytes == 8 ? ~0ull : (1ull << (8 * top_bytes)) - 1;
   sh.rc_shift = 2 * k - 2;
-  sh.new_shift = 8 * ((k - 1) % 8);
+  sh.k = k;
   return sh;
 }
 
-template <int NW>
-__device__ __forceinline__ void roll(Window<NW>& st, uint32_t cb,
-                                     const Shape& sh, bool ascii) {
+__device__ __forceinline__ void roll(Window& st, uint32_t cb, const Shape& sh) {
   st.f2 = ((st.f2 << 2) | cb) & sh.kmask;
-  st.r2 = (st.r2 >> 2) | (static_cast<uint64_t>(3u - cb) << sh.rc_shift);
-  if (!ascii) return;
-#pragma unroll
-  for (int q = 0; q < NW; ++q) {
-    uint64_t w = st.fw[q] >> 8;
-    if (q + 1 < NW) w |= st.fw[q + 1] << 56;
-    st.fw[q] = w;
+  st.r2 = (st.r2 >> 2) | (static_cast<uint64_t>(cb ^ 3u) << sh.rc_shift);
+}
+
+// The ASCII table: entry i holds the four bases of i (code j at bits 2j)
+// as bytes 0..3. Filled by each block before its first hash.
+__device__ __forceinline__ void fill_ascii(uint32_t* tbl) {
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
+    uint32_t v = 0;
+    for (int j = 0; j < 4; ++j)
+      v |= ((kAcgt >> (8 * ((i >> (2 * j)) & 3))) & 0xFFu) << (8 * j);
+    tbl[i] = v;
   }
-  st.fw[NW - 1] |= ascii_of(cb) << sh.new_shift;
-#pragma unroll
-  for (int q = NW - 1; q >= 0; --q) {
-    uint64_t w = st.rw[q] << 8;
-    if (q > 0) w |= st.rw[q - 1] >> 56;
-    st.rw[q] = w;
-  }
-  st.rw[0] |= ascii_of(3u - cb);
-  st.rw[NW - 1] &= sh.top_mask;
+}
+
+// Eight codes (bits 0-15 of src, or bits 16-31 when kHi16) as eight ASCII
+// bytes, code j in byte j.
+template <bool kHi16>
+__device__ __forceinline__ uint64_t ascii8(uint32_t src, const uint32_t* tbl) {
+  const uint32_t lo = tbl[kHi16 ? (src >> 16) & 0xFFu : src & 0xFFu];
+  const uint32_t hi = tbl[kHi16 ? src >> 24 : (src >> 8) & 0xFFu];
+  return static_cast<uint64_t>(hi) << 32 | lo;
 }
 
 // t1ha2_atonce over the canonical window, k in (8*(NW-1), 8*NW]: the
-// length > 24 / > 16 / > 8 / > 0 branches become static word counts.
-template <int NW>
-__device__ __forceinline__ uint64_t hash_window(const Window<NW>& st, int k,
+// length > 24 / > 16 / > 8 / > 0 branches become static word counts. Word q
+// holds bases 8q..8q+7, little-endian; bytes at index >= k are zero, as
+// t1ha2's tail read expects.
+template <int NW, bool kMm>
+__device__ __forceinline__ uint64_t hash_window(const Window& st,
+                                                const Shape& sh,
                                                 uint64_t seed, bool canonical,
-                                                bool mmhash) {
+                                                const uint32_t* tbl) {
   const bool is_rc = canonical && st.r2 < st.f2;
-  if (mmhash) return mm_hash64(is_rc ? st.r2 : st.f2);
+  if constexpr (kMm) return mm_hash64(is_rc ? st.r2 : st.f2);
+  // the canonical strand, base i at bits 2i
+  const uint64_t key = (is_rc ? st.f2 : st.r2) ^ sh.kmask;
+  const uint32_t lo = static_cast<uint32_t>(key);
+  const uint32_t hi = static_cast<uint32_t>(key >> 32);
   uint64_t w[NW];
 #pragma unroll
-  for (int q = 0; q < NW; ++q) w[q] = is_rc ? st.rw[q] : st.fw[q];
-  uint64_t a = seed, b = static_cast<uint64_t>(k);
+  for (int q = 0; q < NW; ++q) {
+    const uint32_t src = q < 2 ? lo : hi;
+    w[q] = q % 2 ? ascii8<true>(src, tbl) : ascii8<false>(src, tbl);
+  }
+  w[NW - 1] &= sh.top_mask;
+  uint64_t a = seed, b = static_cast<uint64_t>(sh.k);
   if constexpr (NW == 4) mixup64(a, b, w[0], kP4);
   if constexpr (NW >= 3) mixup64(b, a, w[NW - 3], kP3);
   if constexpr (NW >= 2) mixup64(a, b, w[NW - 2], kP2);
@@ -182,28 +212,32 @@ __device__ __forceinline__ uint64_t hash_window(const Window<NW>& st, int k,
   return final64(a, b);
 }
 
-__device__ __forceinline__ uint32_t base_at(const uint32_t* __restrict__ row,
-                                            long long p) {
-  return (__ldg(row + (p >> 4)) >> ((p & 15) * 2)) & 3u;
-}
+// -- K1 -----------------------------------------------------------------------
 
-// One thread per (row, chunk, cell).
-template <int NW>
-__global__ void __launch_bounds__(128) rolling_packed_kernel(
+// One thread per (row, chunk, cell); kVec: the cell's words come as a uint4
+// and a uint2 of halo per 64 positions (lsub a multiple of 64, rows 16-byte
+// aligned); kMm: mm_hash64 instead of t1ha2. The grid is exactly
+// B*n_chunks*cells threads (cells is a multiple of kBlock), so a block never
+// spans two rows.
+template <int NW, bool kVec, bool kMm>
+__global__ void __launch_bounds__(kBlock) rolling_packed_kernel(
     const uint32_t* __restrict__ words, long long W,
     const int32_t* __restrict__ n_pos, int n_chunks, int C, int k,
-    uint64_t seed, uint64_t threshold, bool canonical, bool mmhash, int cells,
-    int cap, long long n_threads, uint64_t* __restrict__ out_h,
-    int32_t* __restrict__ out_pos, int32_t* __restrict__ out_cnt) {
+    uint64_t seed, uint64_t threshold, bool canonical, int cells, int cap,
+    uint64_t* __restrict__ out_h, int32_t* __restrict__ out_pos,
+    uint8_t* __restrict__ out_valid, int32_t* __restrict__ out_cell_max) {
+  __shared__ uint32_t s_ascii[256];
+  fill_ascii(s_ascii);
+  __syncthreads();
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= n_threads) return;
   const int cell = static_cast<int>(tid % cells);
   const long long bn = tid / cells;  // row * n_chunks + chunk
   const int chunk = static_cast<int>(bn % n_chunks);
   const long long b = bn / n_chunks;
   const int lsub = C / cells;
   const int lp0 = cell * lsub;  // chunk-local start of this cell
+  const long long gp0 = static_cast<long long>(chunk) * C + lp0;
 
   // pos_end = clip(n_pos - chunk*C, 0, C); positions at or past it never
   // emit, so the cell hashes only up to there
@@ -213,113 +247,326 @@ __global__ void __launch_bounds__(128) rolling_packed_kernel(
   const int n_emit = static_cast<int>(end) - lp0 < lsub
                          ? static_cast<int>(end) - lp0
                          : lsub;
+  const long long slot0 = bn * cap * cells + cell;
   int cnt = 0;
   if (n_emit > 0) {
     const Shape sh = make_shape<NW>(k);
-    const bool ascii = !mmhash;
-
-    const uint32_t* row = words + b * W;
-    const long long p0 = static_cast<long long>(chunk) * C + lp0;
-    Window<NW> st;
-    for (int t = 0; t < k - 1; ++t) roll(st, base_at(row, p0 + t), sh, ascii);
-
-    const long long slot0 = bn * cap * cells + cell;
-    for (int t = 0; t < n_emit; ++t) {
-      roll(st, base_at(row, p0 + k - 1 + t), sh, ascii);
-      const uint64_t h = hash_window(st, k, seed, canonical, mmhash);
-      if (h < threshold) {
-        if (cnt < cap) {
-          out_h[slot0 + static_cast<long long>(cnt) * cells] = h;
-          out_pos[slot0 + static_cast<long long>(cnt) * cells] = lp0 + t;
+    const uint32_t* src = words + b * W + (gp0 >> 4);
+    Window st;
+    {  // warm-up: codes [0, k-1) of the cell only roll
+      uint64_t buf = __ldg(src);
+      if (k - 1 > 16) buf |= static_cast<uint64_t>(__ldg(src + 1)) << 32;
+      for (int j = 0; j < k - 1; ++j, buf >>= 2) roll(st, buf & 3u, sh);
+    }
+    // position t rolls code t + k - 1: group g of 16 positions takes its
+    // codes from words g + sw and g + sw + 1, shifted right by fs bits
+    const int sw = (k - 1) >> 4, fs = 2 * ((k - 1) & 15);
+    const int n_groups = (n_emit + 15) >> 4;
+    uint32_t v[6];  // kVec: words g .. g + 5
+#pragma unroll 1
+    for (int g = 0; g < n_groups; ++g) {
+      uint32_t lo, hi;
+      if constexpr (kVec) {
+        if ((g & 3) == 0) {
+          const uint4 q = __ldg(reinterpret_cast<const uint4*>(src + g));
+          const uint2 r = __ldg(reinterpret_cast<const uint2*>(src + g + 4));
+          v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w; v[4] = r.x;
+          v[5] = r.y;
         }
-        ++cnt;
+        lo = sw ? v[1] : v[0];
+        hi = sw ? v[2] : v[1];
+#pragma unroll
+        for (int m = 0; m < 5; ++m) v[m] = v[m + 1];
+      } else {
+        lo = __ldg(src + g + sw);
+        hi = fs ? __ldg(src + g + sw + 1) : 0u;
+      }
+      const uint32_t codes = __funnelshift_r(lo, hi, fs);
+#pragma unroll
+      for (int s = 0; s < 16; ++s) {
+        roll(st, (codes >> (2 * s)) & 3u, sh);
+        const uint64_t h =
+            hash_window<NW, kMm>(st, sh, seed, canonical, s_ascii);
+        const int t = 16 * g + s;  // the window's k-mer start
+        if (h < threshold && t < n_emit) {
+          if (cnt < cap) {
+            const long long o = slot0 + static_cast<long long>(cnt) * cells;
+            out_h[o] = h;
+            out_pos[o] = static_cast<int32_t>(gp0 + t);
+            out_valid[o] = 1;
+          }
+          ++cnt;
+        }
       }
     }
   }
-  out_cnt[bn * cells + cell] = cnt;
+  for (int s = cnt; s < cap; ++s) {  // the empty slots' sentinels
+    const long long o = slot0 + static_cast<long long>(s) * cells;
+    out_h[o] = ~0ull;
+    out_pos[o] = -1;
+    out_valid[o] = 0;
+  }
+  const int warp_max = __reduce_max_sync(0xFFFFFFFFu, cnt);
+  if ((threadIdx.x & 31) == 0 && warp_max > 0)
+    atomicMax(out_cell_max + b, warp_max);
 }
 
+// -- K2 -----------------------------------------------------------------------
 
-constexpr int kChunkLsub = 64;  // K2 positions per thread
+constexpr int kLanePos = 64;               // positions a lane rolls
+constexpr int kStrip = 32 * kLanePos;      // positions a warp owns
+constexpr int kRound = 16;                 // positions staged per round
+constexpr int kWarps = kBlock / 32;
+// strip codes + halo (<= 31) + the 16-byte misalignment, in 4-byte words,
+// with one pad word after every 16
+constexpr int kCodeWords = (kStrip + 31 + 15 + 15) / 16 * 4;
+constexpr int kCodeSmem = kCodeWords + kCodeWords / 16 + 1;
 
-// K2: one thread per (chunk, cell); cell c of a chunk owns the positions
-// [c*kChunkLsub, min((c+1)*kChunkLsub, C)).
-template <int NW>
-__global__ void __launch_bounds__(128) rolling_chunks_kernel(
-    const uint8_t* __restrict__ codes, int C, int k, int cells,
-    uint64_t seed, uint64_t threshold, bool canonical, bool mmhash,
-    long long n_threads, uint64_t* __restrict__ out_h,
+__device__ __forceinline__ int pad16(int word) { return word + (word >> 4); }
+
+// word `word` of the staged strip (logical numbering), from padded smem
+__device__ __forceinline__ uint32_t code_word(const uint32_t* s, int word) {
+  return s[pad16(word)];
+}
+
+// Four codes of the lane's stream: bytes [4g + bs, 4g + bs + 4) counted from
+// logical word `base` (bs in 0..3).
+__device__ __forceinline__ uint32_t four_codes(const uint32_t* s, int base,
+                                               int g, int bs) {
+  return __funnelshift_r(code_word(s, base + g), code_word(s, base + g + 1),
+                         8 * bs);
+}
+
+// One warp per strip of kStrip positions of one chunk.
+template <int NW, bool kMm>
+__global__ void __launch_bounds__(kBlock) rolling_chunks_kernel(
+    const uint8_t* __restrict__ codes, long long nc, int C, int k,
+    int strips, uint64_t seed, uint64_t threshold, bool canonical,
+    uint64_t* __restrict__ out_h,
     uint8_t* __restrict__ out_keep) {
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= n_threads) return;
-  const int cell = static_cast<int>(tid % cells);
-  const long long chunk = tid / cells;
-  const int lp0 = cell * kChunkLsub;
-  const int n = C - lp0 < kChunkLsub ? C - lp0 : kChunkLsub;
-  const Shape sh = make_shape<NW>(k);
-  const bool ascii = !mmhash;
+  __shared__ uint32_t s_ascii[256];
+  __shared__ uint32_t s_codes[kWarps][kCodeSmem];
+  __shared__ __align__(16) uint64_t s_hash[kWarps][32 * kRound];
+  // keep flags of the strip, 16 bytes per lane-round, one 16-byte pad per
+  // 64 bytes so that the lanes' 16-byte writes do not conflict
+  __shared__ __align__(16) uint4 s_keep[kWarps][kStrip / 16 + kStrip / 64];
+  fill_ascii(s_ascii);
+  __syncthreads();  // the only block barrier: before any warp returns
 
-  const uint8_t* in = codes + chunk * (C + k - 1) + lp0;
-  Window<NW> st;
-  int run = 0;  // valid codes ending here, within this cell's window
-  for (int t = 0; t < k - 1; ++t) {
-    const uint32_t c = __ldg(in + t);
-    run = c < 4u ? run + 1 : 0;
-    roll(st, c & 3u, sh, ascii);
-  }
-  uint64_t* oh = out_h + chunk * C + lp0;
-  uint8_t* ok = out_keep + chunk * C + lp0;
-  for (int t = 0; t < n; ++t) {
-    const uint32_t c = __ldg(in + k - 1 + t);
-    run = c < 4u ? run + 1 : 0;
-    roll(st, c & 3u, sh, ascii);
-    uint64_t h = ~0ull;
-    if (run >= k) {
-      const uint64_t v = hash_window(st, k, seed, canonical, mmhash);
-      if (v < threshold) h = v;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long gw = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (gw >= nc * strips) return;  // whole warps only
+  const long long chunk = gw / strips;
+  const int strip0 = static_cast<int>(gw % strips) * kStrip;
+  const int n_s = C - strip0 < kStrip ? C - strip0 : kStrip;  // positions
+  const int width = C + k - 1;
+  uint32_t* sc = s_codes[warp];
+
+  // stage codes [strip0, strip0 + n_s + k - 1) of this chunk: aligned
+  // 16-byte blocks from the one holding the first byte; a block that would
+  // leave the tensor is read byte by byte
+  {
+    const uint8_t* first = codes + chunk * width + strip0;
+    const uintptr_t a0 = reinterpret_cast<uintptr_t>(first) & ~uintptr_t{15};
+    const uintptr_t lo = reinterpret_cast<uintptr_t>(codes);
+    const uintptr_t hi = lo + static_cast<uintptr_t>(nc) * width;
+    const int off = static_cast<int>(reinterpret_cast<uintptr_t>(first) - a0);
+    const int n_blocks = (off + n_s + k - 1 + 15) >> 4;
+    for (int q = lane; q < n_blocks; q += 32) {
+      const uintptr_t a = a0 + 16 * static_cast<uintptr_t>(q);
+      uint32_t v[4];
+      if (a >= lo && a + 16 <= hi) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(a));
+        v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+      } else {
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          uint32_t w = 0;
+          for (int i = 0; i < 4; ++i) {
+            const uintptr_t p = a + 4 * m + i;
+            if (p >= lo && p < hi)
+              w |= static_cast<uint32_t>(
+                       __ldg(reinterpret_cast<const uint8_t*>(p)))
+                   << (8 * i);
+          }
+          v[m] = w;
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m) sc[pad16(4 * q + m)] = v[m];
     }
-    oh[t] = h;
-    ok[t] = h != ~0ull;
+    __syncwarp();
+
+    const Shape sh = make_shape<NW>(k);
+    const int lp = lane * kLanePos;  // strip-local first position
+    const int n = n_s - lp < kLanePos ? (n_s - lp > 0 ? n_s - lp : 0)
+                                      : kLanePos;
+    Window st;
+    int run = 0;  // valid codes ending here, within this lane's stream
+    // warm-up: codes [lp, lp + k - 1) only roll
+    {
+      const int byte0 = off + lp;
+      const int base = byte0 >> 2, bs = byte0 & 3;
+      for (int g = 0; 4 * g < k - 1; ++g) {
+        const uint32_t f = four_codes(sc, base, g, bs);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          if (4 * g + s < k - 1) {
+            const uint32_t c = (f >> (8 * s)) & 0xFFu;
+            run = c < 4u ? run + 1 : 0;
+            roll(st, c & 3u, sh);
+          }
+        }
+      }
+    }
+    const int byte0 = off + lp + k - 1;  // the first emitting code
+    const int base = byte0 >> 2, bs = byte0 & 3;
+    const long long e0 = chunk * C + strip0;  // global index of the strip
+    uint64_t* hs = s_hash[warp];
+    uint4* ks = s_keep[warp];
+    const int sw = lane & 15;  // this lane's hash swizzle
+#pragma unroll 1
+    for (int r = 0; r < kLanePos / kRound; ++r) {
+      uint32_t keep4[4] = {0u, 0u, 0u, 0u};
+      if (r * kRound < n) {
+#pragma unroll
+        for (int g = 0; g < kRound / 4; ++g) {
+          const uint32_t f = four_codes(sc, base, r * (kRound / 4) + g, bs);
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const int i = 4 * g + s;  // position in the round
+            const uint32_t c = (f >> (8 * s)) & 0xFFu;
+            run = c < 4u ? run + 1 : 0;
+            roll(st, c & 3u, sh);
+            uint64_t h = ~0ull;
+            if (run >= k) {
+              const uint64_t v =
+                  hash_window<NW, kMm>(st, sh, seed, canonical, s_ascii);
+              if (v < threshold) h = v;
+            }
+            hs[lane * kRound + (i ^ sw)] = h;
+            keep4[g] |= static_cast<uint32_t>(h != ~0ull) << (8 * s);
+          }
+        }
+      }
+      const int kq = (lp + r * kRound) >> 4;  // the lane-round's keep block
+      ks[kq + (kq >> 2)] = make_uint4(keep4[0], keep4[1], keep4[2], keep4[3]);
+      __syncwarp();
+      // write the round: 32 segments of kRound hashes, segment `sg` at
+      // strip position sg * kLanePos + r * kRound, n_seg of them real
+      const long long eg0 = e0 + r * kRound;
+      if ((reinterpret_cast<uintptr_t>(out_h + eg0) & 15) == 0) {
+        // 16-byte stores: 8 lanes per 128-byte segment
+        for (int u = lane; u < 32 * kRound / 2; u += 32) {
+          const int sg = u / (kRound / 2), m = u % (kRound / 2);
+          const int left = n_s - sg * kLanePos - r * kRound;  // real in seg
+          if (2 * m >= left) continue;
+          const int x = sg & 15;
+          const int v0 = (2 * m) ^ (x & ~1);
+          ulonglong2 pr =
+              *reinterpret_cast<const ulonglong2*>(hs + sg * kRound + v0);
+          if (x & 1) {
+            const unsigned long long t = pr.x;
+            pr.x = pr.y;
+            pr.y = t;
+          }
+          uint64_t* dst = out_h + eg0 + sg * kLanePos + 2 * m;
+          if (2 * m + 1 < left) {
+            *reinterpret_cast<ulonglong2*>(dst) = pr;
+          } else {
+            dst[0] = pr.x;
+          }
+        }
+      } else {
+        // 8-byte stores: the row start leaves the pairs misaligned
+        for (int u = lane; u < 32 * kRound; u += 32) {
+          const int sg = u / kRound, i = u % kRound;
+          if (i >= n_s - sg * kLanePos - r * kRound) continue;
+          out_h[eg0 + sg * kLanePos + i] = hs[sg * kRound + (i ^ (sg & 15))];
+        }
+      }
+      __syncwarp();
+    }
+    // keep flags of the strip: 16-byte stores where the global address is
+    // aligned, bytes at the edges
+    {
+      const uint8_t* kb = reinterpret_cast<const uint8_t*>(ks);
+      uint8_t* dst = out_keep + e0;
+      const int head = static_cast<int>(
+          (16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15);
+      if (head == 0) {
+        for (int q = lane; q < (n_s >> 4); q += 32)
+          *reinterpret_cast<uint4*>(dst + 16 * q) = ks[q + (q >> 2)];
+        for (int i = (n_s & ~15) + lane; i < n_s; i += 32) {
+          const int q = i >> 4;
+          dst[i] = kb[16 * (q + (q >> 2)) + (i & 15)];
+        }
+      } else {
+        for (int i = lane; i < n_s; i += 32) {
+          const int q = i >> 4;
+          dst[i] = kb[16 * (q + (q >> 2)) + (i & 15)];
+        }
+      }
+    }
   }
+}
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, long long n_threads, cudaStream_t s, Args... args) {
+  const unsigned grid =
+      static_cast<unsigned>((n_threads + kBlock - 1) / kBlock);
+  kernel<<<grid, kBlock, 0, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes. Pointers are device pointers of
-// contiguous tensors: words u32 [B, W], n_pos i32 [B]; out_h u64 and out_pos
-// i32 [B*n_chunks, cap, cells], pre-filled with the empty-slot markers;
-// out_cnt i32 [B*n_chunks, cells]. Launches on `stream` without
-// synchronising and returns cudaGetLastError(); the caller makes the
-// tensors' device current.
+// Plain C entry point of K1, bound with ctypes. Pointers are device
+// pointers of contiguous tensors: words u32 [B, W], n_pos i32 [B]; out_h u64,
+// out_pos i32 and out_valid u8 [B*n_chunks, cap, cells], every element
+// written by the kernel; out_cell_max i32 [B], zeroed by the caller. cells
+// must be a multiple of 128. Launches on `stream` without synchronising and
+// returns cudaGetLastError(); the caller makes the tensors' device current.
 extern "C" int hg_hash_packed_rows(
     const void* words, long long W, const void* n_pos, int B, int n_chunks,
     int C, int k, unsigned long long seed, unsigned long long threshold,
     int canonical, int mmhash, int cells, int cap, void* out_h, void* out_pos,
-    void* out_cnt, void* stream) {
+    void* out_valid, void* out_cell_max, void* stream) {
+  if (cells % kBlock != 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long n_threads = static_cast<long long>(B) * n_chunks * cells;
-  constexpr int kBlock = 128;
-  const unsigned grid =
-      static_cast<unsigned>((n_threads + kBlock - 1) / kBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* w = static_cast<const uint32_t*>(words);
   const auto* np = static_cast<const int32_t*>(n_pos);
   auto* oh = static_cast<uint64_t*>(out_h);
   auto* op = static_cast<int32_t*>(out_pos);
-  auto* oc = static_cast<int32_t*>(out_cnt);
-#define HG_LAUNCH(NW)                                                       \
-  rolling_packed_kernel<NW><<<grid, kBlock, 0, s>>>(                        \
-      w, W, np, n_chunks, C, k, seed, threshold, canonical != 0,            \
-      mmhash != 0, cells, cap, n_threads, oh, op, oc)
+  auto* ov = static_cast<uint8_t*>(out_valid);
+  auto* om = static_cast<int32_t*>(out_cell_max);
+  // uint4 loads need 16-byte aligned cell words (lsub a multiple of 64, a
+  // row stride of whole uint4s, an aligned base) and two words of slack
+  // past the last cell for the halo's uint2
+  const bool vec = (C / cells) % 64 == 0 && W % 4 == 0 &&
+                   W >= static_cast<long long>(n_chunks) * (C / 16) + 2 &&
+                   reinterpret_cast<uintptr_t>(words) % 16 == 0;
+#define HG_ARGS                                                               \
+  n_threads, s, w, W, np, n_chunks, C, k, static_cast<uint64_t>(seed),       \
+      static_cast<uint64_t>(threshold), canonical != 0, cells, cap, oh, op,  \
+      ov, om
+#define HG_LAUNCH(NW)                                                         \
+  if (mmhash)                                                                 \
+    return vec ? launch(rolling_packed_kernel<NW, true, true>, HG_ARGS)      \
+               : launch(rolling_packed_kernel<NW, false, true>, HG_ARGS);    \
+  return vec ? launch(rolling_packed_kernel<NW, true, false>, HG_ARGS)       \
+             : launch(rolling_packed_kernel<NW, false, false>, HG_ARGS)
   switch ((k + 7) / 8) {
-    case 1: HG_LAUNCH(1); break;
-    case 2: HG_LAUNCH(2); break;
-    case 3: HG_LAUNCH(3); break;
-    case 4: HG_LAUNCH(4); break;
+    case 1: HG_LAUNCH(1);
+    case 2: HG_LAUNCH(2);
+    case 3: HG_LAUNCH(3);
+    case 4: HG_LAUNCH(4);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef HG_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+#undef HG_ARGS
 }
 
 // Plain C entry point of K2, bound with ctypes. Pointers are device pointers
@@ -331,26 +578,25 @@ extern "C" int hg_hash_chunks(const void* codes, long long nc, int C, int k,
                               unsigned long long threshold, int canonical,
                               int mmhash, void* out_h, void* out_keep,
                               void* stream) {
-  const int cells = (C + kChunkLsub - 1) / kChunkLsub;
-  const long long n_threads = nc * cells;
-  constexpr int kBlock = 128;
-  const unsigned grid =
-      static_cast<unsigned>((n_threads + kBlock - 1) / kBlock);
+  const int strips = (C + kStrip - 1) / kStrip;
+  const long long n_threads = nc * strips * 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* in = static_cast<const uint8_t*>(codes);
   auto* oh = static_cast<uint64_t*>(out_h);
   auto* ok = static_cast<uint8_t*>(out_keep);
-#define HG_LAUNCH(NW)                                                       \
-  rolling_chunks_kernel<NW><<<grid, kBlock, 0, s>>>(                        \
-      in, C, k, cells, seed, threshold, canonical != 0, mmhash != 0,        \
-      n_threads, oh, ok)
+#define HG_ARGS                                                               \
+  n_threads, s, in, nc, C, k, strips, static_cast<uint64_t>(seed),           \
+      static_cast<uint64_t>(threshold), canonical != 0, oh, ok
+#define HG_LAUNCH(NW)                                                         \
+  return mmhash ? launch(rolling_chunks_kernel<NW, true>, HG_ARGS)           \
+                : launch(rolling_chunks_kernel<NW, false>, HG_ARGS)
   switch ((k + 7) / 8) {
-    case 1: HG_LAUNCH(1); break;
-    case 2: HG_LAUNCH(2); break;
-    case 3: HG_LAUNCH(3); break;
-    case 4: HG_LAUNCH(4); break;
+    case 1: HG_LAUNCH(1);
+    case 2: HG_LAUNCH(2);
+    case 3: HG_LAUNCH(3);
+    case 4: HG_LAUNCH(4);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef HG_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+#undef HG_ARGS
 }

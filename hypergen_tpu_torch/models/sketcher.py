@@ -20,11 +20,14 @@ HV is a sum over the *set* of surviving hashes, so the result does not
 depend on batching, bucketing or the cell geometry.
 
 A genome whose bucket reaches ``seqpar_min_chunks`` chunks (~67 Mbp at the
-default chunk size: plant and fungal assemblies) leaves the batches, as in
-the JAX package: with more than one CUDA card it is split over them
-(``parallel.seqpar``, K2); otherwise it streams through the same K1 step in
-fixed-size tiles whose survivor sets are merged on the host and encoded
-once (``sketch_packed_tiled``).
+default chunk size: plant and fungal assemblies) leaves the batches. On a
+CUDA device it runs alone as a one-row batch of the same step while its
+positions fit K1's int32 positions and its measured memory fits the card
+(``ONE_ROW_*`` below): on the H100 that is the fastest route. Above that,
+with more than one CUDA card it is split over them (``parallel.seqpar``,
+K2); otherwise, and always on the CPU as in the JAX package, it streams
+through the same K1 step in fixed-size tiles whose survivor sets are merged
+on the host and encoded once (``sketch_packed_tiled``).
 """
 
 from __future__ import annotations
@@ -52,6 +55,20 @@ log = logging.getLogger("hypergen")
 
 _NO_RUN = np.int32(0x7FFFFFFF)  # start of a padding run row: never reached
 ENCODE_BLOCK = 512  # hashes per encode block: bounds the [B, n, D] bit tensor
+
+# Routing of huge genomes on a CUDA device (Sketcher._one_row_fits). K1's
+# `pos` is int32, so a one-row batch holds at most 2^31 k-mer positions.
+# Its peak allocated memory grows by at most ONE_ROW_BYTES_PER_CHUNK per
+# chunk of 131,072 positions at the default cell cap ONE_ROW_CAP:
+# chip_smoke.py phase 9 measures the slope between 2^27 and 2^29 bp on the
+# card (270,482 bytes on an H100, the peak being the compaction's prefix
+# sum over the slots) and fails if it exceeds this. The estimate scales
+# with a larger cap, is doubled as a margin (one step of the cell-cap
+# ladder), and keeps ONE_ROW_RESERVE free for the encode and the allocator.
+ONE_ROW_MAX_POSITIONS = 1 << 31
+ONE_ROW_BYTES_PER_CHUNK = 320 * 1024
+ONE_ROW_CAP = 4
+ONE_ROW_RESERVE = 2 << 30
 
 
 def packed_row_words(n_chunks: int, chunk_positions: int) -> int:
@@ -279,16 +296,36 @@ class Sketcher:
         h = torch.from_numpy(merged).to(self.device)[None]
         return self._encode(h, torch.ones_like(h, dtype=torch.bool))[0]
 
-    def _sketch_huge(self, g: PackedGenome) -> Dict[str, object]:
-        """A genome at or above seqpar_min_chunks: split over the CUDA cards
-        when there are several, else tiled on this device."""
-        if self.device.type == "cuda" and torch.cuda.device_count() > 1:
-            # imported here: seqpar imports this module
-            from hypergen_tpu_torch.parallel.seqpar import sketch_codes_seqpar
+    def _one_row_fits(self, n_chunks: int) -> bool:
+        """Whether the one-row batch can take a genome of n_chunks chunks on
+        this CUDA device: its k-mer positions fit K1's int32 `pos`, and
+        twice the measured peak memory (see ONE_ROW_BYTES_PER_CHUNK), plus
+        ONE_ROW_RESERVE, fits in the device's free memory."""
+        if n_chunks * self.C > ONE_ROW_MAX_POSITIONS:
+            return False
+        need = (2 * n_chunks * ONE_ROW_BYTES_PER_CHUNK
+                * max(1.0, self.cell_cap / ONE_ROW_CAP) + ONE_ROW_RESERVE)
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return need <= free
 
-            return sketch_codes_seqpar(
-                codes_from_packed(g), self.params, chunk_positions=self.C
-            )
+    def _sketch_huge(self, g: PackedGenome) -> Dict[str, object]:
+        """A genome at or above seqpar_min_chunks. On a CUDA device it runs
+        as a one-row batch where that fits (``_one_row_fits``: the fastest
+        route on the H100); above that it is split over the CUDA cards when
+        there are several, else tiled on this device. On the CPU it is
+        tiled, as the JAX package routes it."""
+        if self.device.type == "cuda":
+            if self._one_row_fits(self._bucket(g.length)):
+                return self.sketch_batch([g])[0]
+            if torch.cuda.device_count() > 1:
+                # imported here: seqpar imports this module
+                from hypergen_tpu_torch.parallel.seqpar import (
+                    sketch_codes_seqpar,
+                )
+
+                return sketch_codes_seqpar(
+                    codes_from_packed(g), self.params, chunk_positions=self.C
+                )
         return self.sketch_packed_tiled(g)
 
     def _to_filesketch(self, res: Dict[str, object], name: str) -> FileSketch:

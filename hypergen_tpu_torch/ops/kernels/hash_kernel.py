@@ -12,6 +12,9 @@ Hashes come back as int64 bit patterns instead of (hi, lo) u32 pairs. Both
 kernels live in ``csrc/hash_kernel.cu`` and run for a CUDA tensor; the
 plain PyTorch versions run for a CPU tensor. A CUDA tensor never reaches a
 plain version: if a kernel cannot be built or launched, the call raises.
+Each kernel writes every element of its outputs, so a wrapper allocates
+them uninitialised and runs no pass after the launch; ``launch_rows`` and
+``launch_chunks`` launch into outputs allocated beforehand.
 """
 
 from __future__ import annotations
@@ -55,6 +58,10 @@ def _check(packed_words, n_pos, n_chunks, chunk_positions, ksize, cells,
     need = n_chunks * (C // 16) + t_w - lsub // 16
     if W < need:
         raise ValueError(f"packed row too short: {W} words < {need}")
+    if n_chunks * C > 1 << 31:
+        raise ValueError(
+            f"{n_chunks} chunks of {C} positions exceed the int32 positions"
+        )
 
 
 def _rows_plain(packed_words, n_pos, n_chunks, C, ksize, seed, threshold,
@@ -95,7 +102,22 @@ def _rows_plain(packed_words, n_pos, n_chunks, C, ksize, seed, threshold,
         slot = rank[chunk, cell, t].long()
         out_h[bn, slot, cell] = h.reshape(n_chunks, cells, lsub)[chunk, cell, t]
         out_pos[bn, slot, cell] = (cell * lsub + t).to(torch.int32)
-    return out_h, out_pos, out_cnt
+    return _public(out_h, out_pos, out_cnt, B, n_chunks, C, cells, cap)
+
+
+def _public(out_h, out_pos, out_cnt, B, n_chunks, C, cells, cap):
+    """Raw [B*n_chunks, cap, cells] slots with chunk-local positions and
+    per-cell counts -> the public (h, pos, valid, cell_max) in the JAX
+    launcher's (chunk, slot, cell) order; the CUDA kernel writes these
+    directly."""
+    S = n_chunks * cap * cells
+    h = out_h.reshape(B, S)
+    valid = h != -1
+    chunk_off = torch.arange(n_chunks, dtype=torch.int32, device=h.device)
+    chunk_off = (chunk_off * C).repeat_interleave(cap * cells)
+    pos = torch.where(valid, out_pos.reshape(B, S) + chunk_off, -1)
+    cell_max = out_cnt.reshape(B, -1).amax(dim=-1)
+    return h, pos, valid, cell_max
 
 
 _ARGTYPES = {
@@ -104,7 +126,7 @@ _ARGTYPES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong,
         ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ],
     "hg_hash_chunks": [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -125,29 +147,48 @@ def _entry(name: str):
     return fn
 
 
-def _rows_cuda(packed_words, n_pos, n_chunks, C, ksize, seed, threshold,
-               canonical, method, cells, cap):
-    """Launch csrc/hash_kernel.cu; same raw layout as _rows_plain."""
+def rows_outputs(B, n_chunks, cells, cap, device):
+    """Uninitialised outputs of the K1 kernel, (h, pos, valid, cell_max) as
+    hash_packed_rows returns them; cell_max is zeroed, as the kernel needs
+    (it takes the maximum in place)."""
+    S = n_chunks * cap * cells
+    return (
+        torch.empty((B, S), dtype=torch.int64, device=device),
+        torch.empty((B, S), dtype=torch.int32, device=device),
+        torch.empty((B, S), dtype=torch.bool, device=device),
+        torch.zeros((B,), dtype=torch.int32, device=device),
+    )
+
+
+def launch_rows(outs, packed_words, n_pos, n_chunks, C, ksize, seed,
+                threshold, canonical, method, cells, cap):
+    """Launch the K1 kernel into `outs` (from rows_outputs, cell_max zeroed)
+    on the current stream; every element of outs is written."""
     fn = _entry("hg_hash_packed_rows")
     B, W = packed_words.shape
     dev = packed_words.device
-    out_h = torch.full((B * n_chunks, cap, cells), -1, dtype=torch.int64,
-                       device=dev)
-    out_pos = torch.full((B * n_chunks, cap, cells), -1, dtype=torch.int32,
-                         device=dev)
-    out_cnt = torch.empty((B * n_chunks, cells), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = fn(
             packed_words.data_ptr(), W, n_pos.data_ptr(), B, n_chunks, C,
             ksize, seed & U64_MASK, threshold, int(canonical),
-            int(method == "mmhash"), cells, cap, out_h.data_ptr(),
-            out_pos.data_ptr(), out_cnt.data_ptr(),
+            int(method == "mmhash"), cells, cap,
+            *(t.data_ptr() for t in outs),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"hash kernel launch failed: CUDA error {err}")
     hash_packed_rows.launches += 1
-    return out_h, out_pos, out_cnt
+    return outs
+
+
+def _rows_cuda(packed_words, n_pos, n_chunks, C, ksize, seed, threshold,
+               canonical, method, cells, cap):
+    """Launch csrc/hash_kernel.cu; the kernel writes the public outputs
+    (sentinels, chunk offsets and cell_max included), so no pass follows."""
+    outs = rows_outputs(packed_words.shape[0], n_chunks, cells, cap,
+                        packed_words.device)
+    return launch_rows(outs, packed_words, n_pos, n_chunks, C, ksize, seed,
+                       threshold, canonical, method, cells, cap)
 
 
 def hash_packed_rows(
@@ -221,20 +262,8 @@ def _run(rows_fn, packed_words, n_pos, n_chunks, C, ksize, seed, threshold,
     if method not in ("t1ha2", "mmhash"):
         raise ValueError(f"unknown sketch method {method!r}")
     _check(packed_words, n_pos, n_chunks, C, ksize, cells, cap)
-    B = packed_words.shape[0]
-    out_h, out_pos, out_cnt = rows_fn(
-        packed_words, n_pos, n_chunks, C, ksize, seed, threshold, canonical,
-        method, cells, cap,
-    )
-    # raw [B*n_chunks, cap, cells] -> the JAX launcher's (chunk, slot, cell)
-    S = n_chunks * cap * cells
-    h = out_h.reshape(B, S)
-    valid = h != -1
-    chunk_off = torch.arange(n_chunks, dtype=torch.int32, device=h.device)
-    chunk_off = (chunk_off * C).repeat_interleave(cap * cells)
-    pos = torch.where(valid, out_pos.reshape(B, S) + chunk_off, -1)
-    cell_max = out_cnt.reshape(B, -1).amax(dim=-1)
-    return h, pos, valid, cell_max
+    return rows_fn(packed_words, n_pos, n_chunks, C, ksize, seed, threshold,
+                   canonical, method, cells, cap)
 
 
 # -- K2 -----------------------------------------------------------------------
@@ -260,24 +289,33 @@ def _chunks_plain(codes, ksize, seed, threshold, canonical, method):
     return out_h, out_keep
 
 
-def _chunks_cuda(codes, ksize, seed, threshold, canonical, method):
-    """Launch K2 of csrc/hash_kernel.cu; same outputs as _chunks_plain."""
+def launch_chunks(outs, codes, ksize, seed, threshold, canonical, method):
+    """Launch K2 into outs = (h int64 [nc, C], keep bool [nc, C]) on the
+    current stream; every element of outs is written."""
     fn = _entry("hg_hash_chunks")
     nc, width = codes.shape
-    C = width - ksize + 1
     dev = codes.device
-    out_h = torch.empty((nc, C), dtype=torch.int64, device=dev)
-    out_keep = torch.empty((nc, C), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         err = fn(
-            codes.data_ptr(), nc, C, ksize, seed & U64_MASK, threshold,
-            int(canonical), int(method == "mmhash"), out_h.data_ptr(),
-            out_keep.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            codes.data_ptr(), nc, width - ksize + 1, ksize, seed & U64_MASK,
+            threshold, int(canonical), int(method == "mmhash"),
+            outs[0].data_ptr(), outs[1].data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"chunk hash kernel launch failed: CUDA error {err}")
     hash_chunks.launches += 1
-    return out_h, out_keep
+    return outs
+
+
+def _chunks_cuda(codes, ksize, seed, threshold, canonical, method):
+    """Launch K2 of csrc/hash_kernel.cu; same outputs as _chunks_plain."""
+    nc, width = codes.shape
+    C = width - ksize + 1
+    outs = (torch.empty((nc, C), dtype=torch.int64, device=codes.device),
+            torch.empty((nc, C), dtype=torch.bool, device=codes.device))
+    return launch_chunks(outs, codes, ksize, seed, threshold, canonical,
+                         method)
 
 
 def _chunks_for(device: torch.device):

@@ -118,3 +118,88 @@ def test_cuda_huge_genome_routes_match_cpu(cuda):
     for a in got:
         assert a["n_hashes"] == want["n_hashes"] and a["norm2"] == want["norm2"]
         np.testing.assert_array_equal(a["hv"], want["hv"])
+
+
+def _k1_case(cuda, rng, nc, C, cells, k, n_pos, cap=4, scaled=8):
+    """K1 on random packed rows against its plain version, every output."""
+    W = packed_row_words(nc, C)
+    words = torch.from_numpy(
+        rng.integers(0, 2**32, size=(len(n_pos), W), dtype=np.uint64)
+        .astype(np.uint32).view(np.int32)).to(cuda)
+    n_pos = torch.tensor(n_pos, dtype=torch.int32).to(cuda)
+    args = (words, n_pos, nc, C, k, 123, fracminhash_threshold(scaled))
+    before = hk.hash_packed_rows.launches
+    a = hk.hash_packed_rows(*args, cells=cells, cap=cap)
+    b = hk.hash_packed_rows_plain(*args, cells=cells, cap=cap)
+    assert hk.hash_packed_rows.launches == before + 1
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,lsub", [(2048, 16), (4096, 32)])
+def test_cuda_k1_small_lsub(cuda, C, lsub):
+    """K1 where a cell holds 16 or 32 positions (small chunks: one u32 of
+    codes per load instead of a uint4), k short and long."""
+    rng = np.random.default_rng(lsub)
+    for k in (9, 21, 32):
+        a = _k1_case(cuda, rng, 3, C, C // lsub, k, [3 * C - 5, C + 3])
+        assert a[2].any()
+
+
+@pytest.mark.cuda
+def test_cuda_k1_rows_end_mid_block_and_cell(cuda):
+    """Rows whose n_pos ends inside a cell and inside a block of 128 cells:
+    the cell stops emitting there, later cells write only sentinels."""
+    rng = np.random.default_rng(11)
+    C, cells = 1 << 15, 512  # lsub 64, 4 blocks of 128 cells a chunk
+    ends = [C + 64 * 37 + 13, 2 * C + 64 * 200 + 1, 64 * 129 - 1, 64 * 5]
+    a = _k1_case(cuda, rng, 3, C, cells, 21, ends, cap=8, scaled=4)
+    pos, valid = a[1], a[2]
+    for row, end in enumerate(ends):
+        assert int(pos[row][valid[row]].max()) < end
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [700, 2049, 5000])
+def test_cuda_k2_ragged_chunks(cuda, C):
+    """K2 with chunks shorter than one 2048-position strip and not a
+    multiple of it, and rows that start off 16-byte alignment (odd C + k -
+    1), which take the narrower stores."""
+    rng = np.random.default_rng(C)
+    k = 21
+    codes = rng.integers(0, 4, size=(3, C + k - 1)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = INVALID
+    codes = torch.from_numpy(codes).to(cuda)
+    args = (codes, k, 123, fracminhash_threshold(2))
+    a = hk.hash_chunks(*args)
+    b = hk.hash_chunks_plain(*args)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert a[1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 31, 32])
+def test_cuda_k2_k_and_edges(cuda, k):
+    """K2 at k 1, 8, 31 and 32, with invalid codes on the edges of the
+    2048-position strips, of the 64 positions a lane rolls, and in the k-1
+    halo of each chunk."""
+    rng = np.random.default_rng(100 + k)
+    C = 4500
+    codes = rng.integers(0, 4, size=(3, C + k - 1)).astype(np.uint8)
+    for e in (63, 64, 65, 2047, 2048, 4095, 4096, C, C + k - 2):
+        if e < codes.shape[1]:
+            codes[:, e] = INVALID
+    codes[1, C:] = 9  # the whole halo of one chunk
+    codes = torch.from_numpy(codes).to(cuda)
+    for method, canonical in (("t1ha2", True), ("mmhash", True),
+                              ("t1ha2", False)):
+        args = (codes, k, 123, fracminhash_threshold(2))
+        kw = dict(canonical=canonical, method=method)
+        a = hk.hash_chunks(*args, **kw)
+        b = hk.hash_chunks_plain(*args, **kw)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+        assert a[1].any()

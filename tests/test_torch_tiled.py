@@ -145,20 +145,55 @@ def test_sketch_files_routes_tiled_on_one_device(tmp_path, monkeypatch):
         assert a.hv_norm_2 == b.hv_norm_2
 
 
-@pytest.mark.parametrize("device,cards,route", [
-    ("cpu", 4, "tiled"), ("cuda", 1, "tiled"), ("cuda", 2, "seqpar")])
-def test_huge_genome_route(monkeypatch, device, cards, route):
-    """seqpar only on a CUDA Sketcher with more than one card, as the JAX
-    package routes by its device count."""
+GIB = 1 << 30
+
+
+@pytest.mark.parametrize("device,cards,free,max_pos,route", [
+    # the CPU routes as the JAX package: tiled, whatever the memory
+    ("cpu", 4, 80 * GIB, ts.ONE_ROW_MAX_POSITIONS, "tiled"),
+    # CUDA: the one-row batch wherever it fits, on one card or several
+    ("cuda", 1, 80 * GIB, ts.ONE_ROW_MAX_POSITIONS, "one-row"),
+    ("cuda", 2, 80 * GIB, ts.ONE_ROW_MAX_POSITIONS, "one-row"),
+    # past the memory estimate: tiled on one card, seqpar on several
+    ("cuda", 1, 1 * GIB, ts.ONE_ROW_MAX_POSITIONS, "tiled"),
+    ("cuda", 2, 1 * GIB, ts.ONE_ROW_MAX_POSITIONS, "seqpar"),
+    # past the int32 positions of K1's `pos` (lowered here to 1024)
+    ("cuda", 1, 80 * GIB, 1024, "tiled"),
+    ("cuda", 4, 80 * GIB, 1024, "seqpar"),
+])
+def test_huge_genome_route(monkeypatch, device, cards, free, max_pos, route):
+    """On a CUDA Sketcher the one-row batch while it fits K1's int32
+    positions and the card's free memory, then seqpar with more than one
+    card and tiled with one; on the CPU tiled, as the JAX package routes."""
     p = SketchParams(hv_d=HV_D, scaled=SCALED)
     sk = _port(p, seqpar_min_chunks=16)
     sk.device = torch.device(device)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda dev=None: (free, 80 * GIB))
+    monkeypatch.setattr(ts, "ONE_ROW_MAX_POSITIONS", max_pos)
     seen = []
+    monkeypatch.setattr(sk, "sketch_batch",
+                        lambda gs: seen.append("one-row") or [None])
     monkeypatch.setattr(sk, "sketch_packed_tiled",
                         lambda g: seen.append("tiled"))
     monkeypatch.setattr(seqpar, "sketch_codes_seqpar",
                         lambda codes, params, chunk_positions:
                         seen.append("seqpar"))
-    sk._sketch_huge(packed_from_codes(np.zeros(100, np.uint8)))
+    # 3000 bp: a 2-chunk bucket of 2048 positions
+    sk._sketch_huge(packed_from_codes(np.zeros(3000, np.uint8)))
     assert seen == [route]
+
+
+def test_one_row_estimate_scales_with_cap(monkeypatch):
+    """The memory estimate grows with the bucket and with a cell cap above
+    the one it was measured at, and keeps the reserve free."""
+    p = SketchParams(hv_d=HV_D, scaled=SCALED)
+    sk = _port(p)
+    base = 2 * ts.ONE_ROW_BYTES_PER_CHUNK + ts.ONE_ROW_RESERVE
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda dev=None: (base, 80 * GIB))
+    assert sk.cell_cap <= ts.ONE_ROW_CAP
+    assert sk._one_row_fits(1) and not sk._one_row_fits(2)
+    sk.cell_cap = 4 * ts.ONE_ROW_CAP
+    assert not sk._one_row_fits(1)
