@@ -5,19 +5,20 @@
 
 Run from the root of the repository on a machine with a CUDA card and the
 CUDA toolkit. It builds the hand-written kernels K1 and K2 and the native
-FASTA parser from csrc/, prints each kernel's registers and shared memory
-(ptxas) and the static instructions of its hot loop (cuobjdump), checks each
-kernel bit for bit against its plain PyTorch version and times it alone
-(outputs allocated beforehand) and through its wrapper, drives `sketch` and
+FASTA parser from csrc/, prints each kernel's registers, shared memory and
+occupancy as the CUDA runtime reports them, checks each kernel bit for bit
+against its plain PyTorch version and times it alone (outputs allocated
+beforehand) and through its wrapper, drives `sketch` and
 `dist` through the port's CLI on 16 synthetic 4.19 Mbp genomes, and checks
 the card's output files against the port's CPU run byte for byte. Then it
 drives the huge-genome path on a synthetic 134 Mbp (2^27 bp) plant-scale
 genome: the CLI's routing (the one-row K1 batch), K1 at that one-row shape,
 sequence parallelism over one and four shards, the tiled route and the
 one-row batch, which must agree; it measures the one-row batch's peak
-memory at 2^27 and 2^29 bp against the slope the router assumes, and it
-checks the sequence-parallel and tiled routes and the routing on the card
-against the CPU. Every phase prints one line; any failure raises and exits
+memory at 2^27, 2^29 and 2^31 - 1 bp (the longest genome the router gives
+it, where it must equal the tiled route) against the router's estimate,
+and it checks the sequence-parallel and tiled routes and the routing on
+the card, with its memory free and held down, against the CPU. Every phase prints one line; any failure raises and exits
 non-zero before the last line. The last two lines are the kernel table and
 the result, each one JSON object.
 """
@@ -67,7 +68,8 @@ K2_CHUNKS = 32
 # on one card and on several alike
 K2_ROUTE = "seqpar on [cuda:0] x 4"
 HUGE_BP = 1 << 27  # 134,217,728 bp: between A. thaliana and rice
-BIG_BP = 1 << 29  # the one-row batch's memory slope: 2^27 to 2^29 bp
+BIG_BP = 1 << 29  # the one-row batch's memory: 2^27, 2^29 and LIMIT_BP
+LIMIT_BP = (1 << 31) - 1  # the longest genome the one-row batch takes
 HUGE_N_RUNS = 200
 MID_BP = 3_000_000  # card-vs-CPU genome for the huge-genome routes
 DEVICE = "cuda"
@@ -138,62 +140,19 @@ def bound(n_bytes: int, n_mads: int):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-# the low half of t1ha2's last prime, kP5, as SASS prints it: each hash
-# multiplies by it twice (the low and the high half of one 128-bit product)
-KP5_LO = "-0x7bdb0cbb"
-KERNELS = {"rolling_packed_kernel": "K1", "rolling_chunks_kernel": "K2"}
+def kernel_resources(lib, chunks: bool, k: int) -> str:
+    """Registers, static shared memory and occupancy of the kernel that the
+    wrapper launches at the production shape for k (t1ha2; K1 with its
+    uint4 loads), as the CUDA runtime reports them for card 0."""
+    import ctypes
 
-
-def resources(lib, log: str):
-    """{(kernel, NW, variant): (registers, shared bytes, static instructions
-    of the hot loop per position)} of the t1ha2 kernels, from ptxas's output
-    (`log`) and the SASS of the built library. The hot loop is the smallest
-    backward-branch loop that holds (nearly) the most IMADs, the t1ha2
-    products; its positions are its hashes, two kP5 products each."""
-    import re
-
-    from hypergen_tpu_torch.ops.kernels import build
-
-    regs = {}
-    name = None
-    for line in log.splitlines():
-        m = re.search(r"Function properties for (\w+)", line)
-        if m:
-            name = m.group(1)
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line) or \
-            re.search(r"Used (\d+) registers", line)
-        if m and name:
-            regs[name] = (int(m.group(1)),
-                          int(m.group(2)) if m.lastindex > 1 else 0)
-    sass = subprocess.run(
-        [str(Path(build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
-        capture_output=True, text=True, timeout=120, check=True).stdout
-    out = {}
-    for part in sass.split("Function : ")[1:]:
-        fname = part.split("\n", 1)[0].strip()
-        kern = next((v for k, v in KERNELS.items() if k in fname), None)
-        if kern is None:
-            continue
-        ins = [(int(a, 16), op.strip()) for a, op in
-               re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", part)]
-        loops = []
-        for addr, op in ins:
-            b = re.search(r"BRA\s+(?:\S+\s+)?0x([0-9a-f]+)", op)
-            if b and int(b.group(1), 16) <= addr:
-                body = [o for a, o in ins if int(b.group(1), 16) <= a <= addr]
-                loops.append((sum("IMAD" in o for o in body), len(body),
-                              sum(KP5_LO in o for o in body) // 2))
-        top = max(i for i, _, _ in loops)
-        n_hot, hashes = min((n, h) for i, n, h in loops if i >= 0.9 * top)
-        tpl = re.search(r"ILi(\d)E((?:Lb\dE)*)E", fname)
-        flags = [int(f) for f in re.findall(r"Lb(\d)E", tpl.group(2))]
-        if flags[-1]:  # the mmhash instantiations
-            continue
-        variant = ("uint4" if flags[0] else "u32") if kern == "K1" else ""
-        r, smem = regs.get(fname, (None, None))
-        out[(kern, int(tpl.group(1)), variant)] = (r, smem,
-                                                   n_hot / max(hashes, 1))
-    return out
+    out = (ctypes.c_int * 5)()
+    err = lib.hg_kernel_resources(int(chunks), k, 0, 1, out)
+    check(err == 0, f"hg_kernel_resources: CUDA error {err}")
+    regs, smem, blocks, threads, per_sm = out
+    return (f"{regs} registers, {smem} B static shared memory, {blocks} "
+            f"blocks of {threads} threads an SM (occupancy "
+            f"{blocks * threads / per_sm:.3f})")
 
 
 def time_ms(torch, fn, runs: int = 12, warmup: int = 2) -> float:
@@ -210,15 +169,6 @@ def time_ms(torch, fn, runs: int = 12, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def occupancy(regs: int, smem: int) -> float:
-    """Resident warps per SM over the H100's 64, for blocks of 128 threads:
-    registers go to a warp in units of 256, shared memory to a block with
-    1 KB reserved, at most 32 blocks and 2048 threads an SM."""
-    per_warp = -(-regs * 32 // 256) * 256
-    blocks = min(65536 // (per_warp * 4), 233472 // (smem + 1024), 32, 16)
-    return blocks * 4 / 64
 
 
 def k1_times(torch, args, kw, plain_runs: int = 12):
@@ -586,13 +536,14 @@ def huge_genome(torch, tmp: Path):
     to the one-row K1 batch on one card and on several. K1 is held to its
     plain version and timed at that one-row shape, K2 at the genome's full
     1024-chunk shape and at one shard of the four-shard split; the one-row
-    batch's peak memory is measured at 2^27 and 2^29 bp. Returns a dict of
-    the numbers the kernels line reports."""
+    batch's peak memory is measured at 2^27, 2^29 and 2^31 - 1 bp against
+    the router's estimate. Returns a dict of the numbers the kernels line
+    reports."""
     import numpy as np
 
     from hypergen_tpu_torch import SketchParams
     from hypergen_tpu_torch.io.fastx import (
-        codes_from_packed, packed_from_codes, read_genome_packed,
+        PackedGenome, codes_from_packed, read_genome_packed,
     )
     from hypergen_tpu_torch.io.sketch_db import load_sketch
     from hypergen_tpu_torch.models import sketcher as sm
@@ -617,7 +568,7 @@ def huge_genome(torch, tmp: Path):
     n_chunks = sk._bucket(g.length)
     check(n_chunks == HUGE_BP // CHUNK and n_chunks >= sk.seqpar_min_chunks,
           f"huge genome bucket {n_chunks}")
-    check(sk._one_row_fits(n_chunks), "the router sends 2^27 bp elsewhere")
+    check(sk._one_row_fits(g.length), "the router sends 2^27 bp elsewhere")
     codes = codes_from_packed(g)
     phase(9, f"{HUGE_BP} bp genome, {g.runs.shape[0]} invalid runs, "
              f"{n_chunks} chunks: FASTA written in {write_s:.3f} s, parsed "
@@ -708,39 +659,59 @@ def huge_genome(torch, tmp: Path):
              f"{one_row['bound_by']}")
     del a1
 
-    # the one-row batch's peak memory, 2^27 and 2^29 bp, against the
-    # router's slope (Sketcher._one_row_fits)
+    # the one-row batch's peak memory at 2^27, 2^29 and 2^31 - 1 bp against
+    # the router's estimate (Sketcher._one_row_bytes); the larger genomes
+    # are random packed bytes with no invalid run, built in memory
     def one_row_peak(genome):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated(card)
         torch.cuda.reset_peak_memory_stats(card)
         t0 = time.monotonic()
-        sk.sketch_batch([genome])
+        (res,) = sk.sketch_batch([genome])
         torch.cuda.synchronize()
-        return (torch.cuda.max_memory_allocated(card) - base,
+        return (res, torch.cuda.max_memory_allocated(card) - base,
                 time.monotonic() - t0)
 
-    peak_a, secs_a = one_row_peak(g)
-    big = np.random.default_rng(SEED + 5).integers(0, 4, size=BIG_BP,
-                                                   dtype=np.uint8)
-    big = packed_from_codes(big)
-    n_big = sk._bucket(big.length)
-    check(sk._one_row_fits(n_big), "the router sends 2^29 bp elsewhere")
-    peak_b, secs_b = one_row_peak(big)
-    del big
-    slope = (peak_b - peak_a) / (n_big - n_chunks)
-    check(slope <= sm.ONE_ROW_BYTES_PER_CHUNK
-          and peak_b <= n_big * sm.ONE_ROW_BYTES_PER_CHUNK,
-          f"one-row memory {slope:.0f} B per chunk exceeds the router's "
-          f"{sm.ONE_ROW_BYTES_PER_CHUNK}")
-    phase(9, f"one-row batch peak allocated above its start: {peak_a} B at "
-             f"2^27 bp ({n_chunks} chunks, {secs_a:.3f} s), {peak_b} B at "
-             f"2^29 bp ({n_big} chunks, {secs_b:.3f} s): {slope:.0f} B per "
-             f"chunk; the router assumes {sm.ONE_ROW_BYTES_PER_CHUNK} B per "
-             f"chunk at cap {sm.ONE_ROW_CAP}, doubled, plus "
-             f"{sm.ONE_ROW_RESERVE} B free, and at most "
-             f"{sm.ONE_ROW_MAX_POSITIONS} positions")
+    rng = np.random.default_rng(SEED + 5)
+    peaks = []
+    for bp in (HUGE_BP, BIG_BP, LIMIT_BP):
+        genome = g if bp == HUGE_BP else PackedGenome(
+            rng.integers(0, 256, size=-(-bp // 4), dtype=np.uint8),
+            np.zeros((0, 2), np.int32), bp)
+        n = sk._bucket(bp)
+        check(sk._one_row_fits(bp), f"the router sends {bp} bp elsewhere")
+        res, peak, secs = one_row_peak(genome)
+        check(peak <= sk._one_row_bytes(n),
+              f"one-row peak {peak} B at {bp} bp exceeds the router's "
+              f"estimate {sk._one_row_bytes(n)} B")
+        peaks.append(f"{peak} B at {bp} bp ({n} chunks, {secs:.3f} s)")
+        if bp == HUGE_BP:
+            n0, peak0 = n, peak
+    check(not sk._one_row_fits(LIMIT_BP + 1), "the router takes 2^31 bp")
+    slots = sk.cells * sk.cell_cap
+    per_slot = ((peak - peak0) / (n - n0) - CHUNK // 4) / slots
+    phase(9, f"one-row batch peak allocated above its start: "
+             f"{', '.join(peaks)}: {per_slot:.2f} B a slot above the packed "
+             f"words ({slots} slots a chunk); the router assumes "
+             f"{sm.ONE_ROW_BYTES_PER_SLOT} B a slot, doubled, plus "
+             f"{sm.ONE_ROW_RESERVE} B free, for genomes below "
+             f"{LIMIT_BP + 1} bp")
+    # at the limit the one-row batch equals the tiled route
+    t0 = time.monotonic()
+    tiled = sk.sketch_packed_tiled(genome)
+    secs = time.monotonic() - t0
+    del genome
+    expect = (LIMIT_BP - p.ksize + 1) / p.scaled
+    check(np.array_equal(res["hv"], tiled["hv"])
+          and res["norm2"] == tiled["norm2"]
+          and res["n_hashes"] == tiled["n_hashes"]
+          and abs(res["n_hashes"] / expect - 1) < 0.01,
+          f"{LIMIT_BP} bp: one-row batch != tiled, or {res['n_hashes']} "
+          f"hashes against ~{expect:.0f}")
+    phase(9, f"{LIMIT_BP} bp: the one-row batch equals the tiled route "
+             f"({secs:.3f} s): hv, norm2, n_hashes {res['n_hashes']} "
+             f"(expected ~{expect:.0f})")
 
     k2_args = (p.ksize, p.seed, p.threshold)
     err = k2_full_vs_plain(torch, "full shape", chunks, k2_args)
@@ -766,8 +737,9 @@ def huge_card_vs_cpu(torch, tmp: Path) -> None:
     """Phase 10: the seqpar and tiled routes on the card equal their CPU
     runs, on a 3 Mbp genome with seqpar_min_chunks lowered to 16; and
     sketch_files routes it on the card to the one-row batch, and, with the
-    router's position limit lowered past it, to tiles on one card or seqpar
-    on several, all equal to the CPU's tiled route."""
+    card's memory held down to 1 GiB free (below the router's reserve), to
+    tiles on one card or seqpar on several, all equal to the CPU's tiled
+    route."""
     import numpy as np
 
     from hypergen_tpu_torch import SketchParams
@@ -805,23 +777,27 @@ def huge_card_vs_cpu(torch, tmp: Path) -> None:
 
     cpu = routed("cpu", None)  # tiled, as the JAX package routes
     one_row = routed(DEVICE, (True, 0))
-    limit = sm.ONE_ROW_MAX_POSITIONS
-    sm.ONE_ROW_MAX_POSITIONS = 0  # past the limit: tiled or seqpar
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info(card)
+    hog = torch.empty(free - (1 << 30), dtype=torch.uint8, device=card)
     try:
-        above = routed(DEVICE, (True, 0) if cards == 1 else (False, cards))
+        check(torch.cuda.mem_get_info(card)[0] < sm.ONE_ROW_RESERVE,
+              "the card's memory was not held down")
+        held = routed(DEVICE, (True, 0) if cards == 1 else (False, cards))
     finally:
-        sm.ONE_ROW_MAX_POSITIONS = limit
-    for name, fs in (("one-row", one_row), ("above the limit", above)):
+        del hog
+        torch.cuda.empty_cache()
+    for name, fs in (("one-row", one_row), ("memory held down", held)):
         check(np.array_equal(fs.hv, cpu.hv) and fs.hv_norm_2 == cpu.hv_norm_2
               and fs.hv_quant_bits == cpu.hv_quant_bits,
               f"sketch_files {name}: card != CPU")
     check(np.array_equal(cpu.decompress(), a["hv"])
           and cpu.hv_norm_2 == a["norm2"], "sketch_files != seqpar")
     phase(10, f"{MID_BP} bp: seqpar over 2 shards, and sketch_files with "
-              f"seqpar_min_chunks=16 (the one-row batch on the card; past "
-              f"the router's limit {'seqpar' if cards > 1 else 'tiled'} on "
-              f"the card; tiled on the CPU), identical on the card and the "
-              f"CPU; n_hashes {a['n_hashes']}")
+              f"seqpar_min_chunks=16 (the one-row batch on the card; with "
+              f"1 GiB of the card free "
+              f"{'seqpar' if cards > 1 else 'tiled'}; tiled on the CPU), "
+              f"identical on the card and the CPU; n_hashes {a['n_hashes']}")
 
 
 def main() -> None:
@@ -839,7 +815,7 @@ def main() -> None:
     print(smi, flush=True)
 
     # 2. build the kernels and the FASTA parser from the checkout's
-    # sources, both compilers at once; the kernels' resources
+    # sources, both compilers at once; the kernels' resources at k=21
     from hypergen_tpu_torch.io import fastx
     from hypergen_tpu_torch.ops.kernels import build
 
@@ -848,15 +824,10 @@ def main() -> None:
         libs = list(pool.map(build.build, ("hash_kernel", "fastx")))
     phase(2, f"built {', '.join(lib.name for lib in libs)} in "
              f"{time.monotonic() - t0:.2f} s; FASTA parser: {fastx.parser()}")
-    res = resources(libs[0], build.compiler_log("hash_kernel"))
-    for (kern, nw, variant), (regs, smem, per_pos) in sorted(res.items()):
-        if nw == 3:  # k 17-24, the default k=21
-            phase(2, f"{kern} NW={nw} {variant or ''} t1ha2: {regs} "
-                     f"registers, {smem} B static shared memory, occupancy "
-                     f"{occupancy(regs, smem):.3f}; {per_pos:.1f} static "
-                     f"instructions per position in the hot loop (SASS)")
-    k1_res = res[("K1", 3, "uint4")]
-    k2_res = res[("K2", 3, "")]
+    lib = build.load("hash_kernel")
+    for name, chunks in (("K1", False), ("K2", True)):
+        phase(2, f"{name} at k=21, t1ha2: "
+                 f"{kernel_resources(lib, chunks, 21)}")
 
     worst, (args, kw) = kernel_vs_plain(torch)
 
@@ -899,8 +870,6 @@ def main() -> None:
         "max_abs_err": max(worst, huge["k1_err"]), "ms": k1_ms,
         "wrapper_ms": k1_wrapper_ms, "plain_ms": plain_ms,
         "bound_ms": k1_b[0], "bound_by": k1_b[1], "library_ms": None,
-        "registers": k1_res[0], "occupancy": occupancy(*k1_res[:2]),
-        "instr_per_position": k1_res[2],
         "one_row": {"shape": "1 x 1024 chunks (2^27 bp)", **k1_one},
     }, {
         "name": "hash_chunks", "route": "cuda", "source": SOURCE,
@@ -909,9 +878,7 @@ def main() -> None:
         "max_abs_err": max(k2_err, huge["k2_err"]), "ms": k2["ms"],
         "wrapper_ms": k2["wrapper_ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-        "library_ms": None, "registers": k2_res[0],
-        "occupancy": occupancy(*k2_res[:2]),
-        "instr_per_position": k2_res[2],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -48,9 +48,11 @@
 // cell only roll the two keys, a few instructions each. Neither more
 // independent hashes in flight nor a higher occupancy changed its time on
 // the H100 (1 to 8 hashes, 48 to 80 registers; PERF.md). Resources
-// at k=21 (ptxas -v, sm_90a): 72 registers, 1 KB of shared memory, 7
-// blocks of 128 threads an SM (occupancy 0.44); 145 static SASS
-// instructions a position in the hot loop, against 212 in the first one.
+// at k=21, as the CUDA runtime reports them on the H100
+// (hg_kernel_resources, chip_smoke.py phase 2): 72 registers, 1 KB of
+// shared memory, 7 blocks of 128 threads an SM (occupancy 0.44); 145 static
+// SASS instructions a position in the hot loop (cuobjdump), against 212 in
+// the first one.
 //
 // K2: the position-dense chunk hash.
 //
@@ -87,9 +89,10 @@
 // shapes: a short last strip, a C that is no multiple of anything, a row
 // start that is not 16-byte aligned (its edges then take narrower stores),
 // k from 1 to 32. With the stores coalesced, the hashing bounds it, as K1.
-// Resources at k=21 (ptxas -v, sm_90a): 79 registers, 36,560 bytes of
-// static shared memory a block, 6 blocks an SM (occupancy 0.375); 145 static
-// SASS instructions a position in the hot loop.
+// Resources at k=21, as the CUDA runtime reports them on the H100: 79
+// registers, 36,560 bytes of static shared memory a block, 6 blocks an SM
+// (occupancy 0.375); 145 static SASS instructions a position in the hot
+// loop (cuobjdump).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -512,8 +515,59 @@ __global__ void __launch_bounds__(kBlock) rolling_chunks_kernel(
   }
 }
 
+// The instantiations of one kernel share one signature; NW = ceil(k / 8)
+// t1ha2 words, and k outside [1, 32] has none (null).
+using PackedKernel = decltype(&rolling_packed_kernel<1, false, false>);
+using ChunksKernel = decltype(&rolling_chunks_kernel<1, false>);
+
+template <int NW>
+PackedKernel packed_nw(bool vec, bool mm) {
+  if (vec)
+    return mm ? &rolling_packed_kernel<NW, true, true>
+              : &rolling_packed_kernel<NW, true, false>;
+  return mm ? &rolling_packed_kernel<NW, false, true>
+            : &rolling_packed_kernel<NW, false, false>;
+}
+
+PackedKernel packed_kernel(int k, bool vec, bool mm) {
+  switch ((k + 7) / 8) {
+    case 1: return packed_nw<1>(vec, mm);
+    case 2: return packed_nw<2>(vec, mm);
+    case 3: return packed_nw<3>(vec, mm);
+    case 4: return packed_nw<4>(vec, mm);
+    default: return nullptr;
+  }
+}
+
+template <int NW>
+ChunksKernel chunks_nw(bool mm) {
+  return mm ? &rolling_chunks_kernel<NW, true>
+            : &rolling_chunks_kernel<NW, false>;
+}
+
+ChunksKernel chunks_kernel(int k, bool mm) {
+  switch ((k + 7) / 8) {
+    case 1: return chunks_nw<1>(mm);
+    case 2: return chunks_nw<2>(mm);
+    case 3: return chunks_nw<3>(mm);
+    case 4: return chunks_nw<4>(mm);
+    default: return nullptr;
+  }
+}
+
+// K1 takes its words as a uint4 and a uint2 of halo per 64 positions when
+// they are 16-byte aligned (lsub a multiple of 64, a row stride of whole
+// uint4s, an aligned base) and two words of slack follow the last cell
+bool packed_vec(const void* words, long long W, int n_chunks, int C,
+                int cells) {
+  return (C / cells) % 64 == 0 && W % 4 == 0 &&
+         W >= static_cast<long long>(n_chunks) * (C / 16) + 2 &&
+         reinterpret_cast<uintptr_t>(words) % 16 == 0;
+}
+
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, long long n_threads, cudaStream_t s, Args... args) {
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned grid =
       static_cast<unsigned>((n_threads + kBlock - 1) / kBlock);
   kernel<<<grid, kBlock, 0, s>>>(args...);
@@ -534,39 +588,15 @@ extern "C" int hg_hash_packed_rows(
     int canonical, int mmhash, int cells, int cap, void* out_h, void* out_pos,
     void* out_valid, void* out_cell_max, void* stream) {
   if (cells % kBlock != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_threads = static_cast<long long>(B) * n_chunks * cells;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* w = static_cast<const uint32_t*>(words);
-  const auto* np = static_cast<const int32_t*>(n_pos);
-  auto* oh = static_cast<uint64_t*>(out_h);
-  auto* op = static_cast<int32_t*>(out_pos);
-  auto* ov = static_cast<uint8_t*>(out_valid);
-  auto* om = static_cast<int32_t*>(out_cell_max);
-  // uint4 loads need 16-byte aligned cell words (lsub a multiple of 64, a
-  // row stride of whole uint4s, an aligned base) and two words of slack
-  // past the last cell for the halo's uint2
-  const bool vec = (C / cells) % 64 == 0 && W % 4 == 0 &&
-                   W >= static_cast<long long>(n_chunks) * (C / 16) + 2 &&
-                   reinterpret_cast<uintptr_t>(words) % 16 == 0;
-#define HG_ARGS                                                               \
-  n_threads, s, w, W, np, n_chunks, C, k, static_cast<uint64_t>(seed),       \
-      static_cast<uint64_t>(threshold), canonical != 0, cells, cap, oh, op,  \
-      ov, om
-#define HG_LAUNCH(NW)                                                         \
-  if (mmhash)                                                                 \
-    return vec ? launch(rolling_packed_kernel<NW, true, true>, HG_ARGS)      \
-               : launch(rolling_packed_kernel<NW, false, true>, HG_ARGS);    \
-  return vec ? launch(rolling_packed_kernel<NW, true, false>, HG_ARGS)       \
-             : launch(rolling_packed_kernel<NW, false, false>, HG_ARGS)
-  switch ((k + 7) / 8) {
-    case 1: HG_LAUNCH(1);
-    case 2: HG_LAUNCH(2);
-    case 3: HG_LAUNCH(3);
-    case 4: HG_LAUNCH(4);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef HG_LAUNCH
-#undef HG_ARGS
+  return launch(
+      packed_kernel(k, packed_vec(words, W, n_chunks, C, cells), mmhash != 0),
+      static_cast<long long>(B) * n_chunks * cells,
+      static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(words),
+      W, static_cast<const int32_t*>(n_pos), n_chunks, C, k,
+      static_cast<uint64_t>(seed), static_cast<uint64_t>(threshold),
+      canonical != 0, cells, cap, static_cast<uint64_t*>(out_h),
+      static_cast<int32_t*>(out_pos), static_cast<uint8_t*>(out_valid),
+      static_cast<int32_t*>(out_cell_max));
 }
 
 // Plain C entry point of K2, bound with ctypes. Pointers are device pointers
@@ -579,24 +609,40 @@ extern "C" int hg_hash_chunks(const void* codes, long long nc, int C, int k,
                               int mmhash, void* out_h, void* out_keep,
                               void* stream) {
   const int strips = (C + kStrip - 1) / kStrip;
-  const long long n_threads = nc * strips * 32;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* in = static_cast<const uint8_t*>(codes);
-  auto* oh = static_cast<uint64_t*>(out_h);
-  auto* ok = static_cast<uint8_t*>(out_keep);
-#define HG_ARGS                                                               \
-  n_threads, s, in, nc, C, k, strips, static_cast<uint64_t>(seed),           \
-      static_cast<uint64_t>(threshold), canonical != 0, oh, ok
-#define HG_LAUNCH(NW)                                                         \
-  return mmhash ? launch(rolling_chunks_kernel<NW, true>, HG_ARGS)           \
-                : launch(rolling_chunks_kernel<NW, false>, HG_ARGS)
-  switch ((k + 7) / 8) {
-    case 1: HG_LAUNCH(1);
-    case 2: HG_LAUNCH(2);
-    case 3: HG_LAUNCH(3);
-    case 4: HG_LAUNCH(4);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef HG_LAUNCH
-#undef HG_ARGS
+  return launch(chunks_kernel(k, mmhash != 0), nc * strips * 32,
+                static_cast<cudaStream_t>(stream),
+                static_cast<const uint8_t*>(codes), nc, C, k, strips,
+                static_cast<uint64_t>(seed), static_cast<uint64_t>(threshold),
+                canonical != 0, static_cast<uint64_t*>(out_h),
+                static_cast<uint8_t*>(out_keep));
+}
+
+// What the CUDA runtime reports, on the current device, for the kernel that
+// hg_hash_chunks (chunks != 0) or hg_hash_packed_rows (with `vec`, see
+// packed_vec) launches for k and mmhash: out = {registers a thread, static
+// shared bytes a block, resident blocks an SM, threads a block, threads an
+// SM}. Returns a CUDA error code, 0 on success.
+extern "C" int hg_kernel_resources(int chunks, int k, int mmhash, int vec,
+                                   int* out) {
+  const void* fn =
+      chunks ? reinterpret_cast<const void*>(chunks_kernel(k, mmhash != 0))
+             : reinterpret_cast<const void*>(
+                   packed_kernel(k, vec != 0, mmhash != 0));
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  int blocks = 0, dev = 0, per_sm = 0;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kBlock, 0);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor,
+                               dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = blocks;
+  out[3] = kBlock;
+  out[4] = per_sm;
+  return 0;
 }

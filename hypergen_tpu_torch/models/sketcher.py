@@ -49,25 +49,28 @@ from hypergen_tpu_torch.io.sketch_db import FileSketch
 from hypergen_tpu_torch.params import SketchParams
 from hypergen_tpu_torch.ops.compact import compact_masked
 from hypergen_tpu_torch.ops.encode import encode_hv, hv_norm2_i32, hv_to_i16
-from hypergen_tpu_torch.ops.kernels.hash_kernel import hash_packed_rows
+from hypergen_tpu_torch.ops.kernels.hash_kernel import (
+    MAX_POSITIONS,
+    hash_packed_rows,
+)
 
 log = logging.getLogger("hypergen")
 
-_NO_RUN = np.int32(0x7FFFFFFF)  # start of a padding run row: never reached
+# start of a padding run row: no window end reaches it, since every
+# genome has fewer than 2^31 codes (Sketcher._one_row_fits)
+_NO_RUN = np.int32(0x7FFFFFFF)
 ENCODE_BLOCK = 512  # hashes per encode block: bounds the [B, n, D] bit tensor
 
-# Routing of huge genomes on a CUDA device (Sketcher._one_row_fits). K1's
-# `pos` is int32, so a one-row batch holds at most 2^31 k-mer positions.
-# Its peak allocated memory grows by at most ONE_ROW_BYTES_PER_CHUNK per
-# chunk of 131,072 positions at the default cell cap ONE_ROW_CAP:
-# chip_smoke.py phase 9 measures the slope between 2^27 and 2^29 bp on the
-# card (270,482 bytes on an H100, the peak being the compaction's prefix
-# sum over the slots) and fails if it exceeds this. The estimate scales
-# with a larger cap, is doubled as a margin (one step of the cell-cap
-# ladder), and keeps ONE_ROW_RESERVE free for the encode and the allocator.
-ONE_ROW_MAX_POSITIONS = 1 << 31
-ONE_ROW_BYTES_PER_CHUNK = 320 * 1024
-ONE_ROW_CAP = 4
+# Routing of huge genomes on a CUDA device (Sketcher._one_row_fits). A
+# one-row batch's peak allocated memory is its packed words (C/4 bytes a
+# chunk) and ONE_ROW_BYTES_PER_SLOT for each of K1's n_chunks*cells*cap
+# slots: h, pos and valid (13 bytes) and the compaction's two int64 prefix
+# sums (16). chip_smoke.py phase 9 measures it on the card at 2^27, 2^29 and
+# 2^31 - 1 bp (29.02 bytes a slot on an H100) and fails if any peak exceeds
+# the estimate. The router doubles the estimate as a margin (one step of
+# the cell-cap ladder) and keeps ONE_ROW_RESERVE free for the encode and
+# the allocator.
+ONE_ROW_BYTES_PER_SLOT = 32
 ONE_ROW_RESERVE = 2 << 30
 
 
@@ -296,17 +299,23 @@ class Sketcher:
         h = torch.from_numpy(merged).to(self.device)[None]
         return self._encode(h, torch.ones_like(h, dtype=torch.bool))[0]
 
-    def _one_row_fits(self, n_chunks: int) -> bool:
-        """Whether the one-row batch can take a genome of n_chunks chunks on
-        this CUDA device: its k-mer positions fit K1's int32 `pos`, and
-        twice the measured peak memory (see ONE_ROW_BYTES_PER_CHUNK), plus
-        ONE_ROW_RESERVE, fits in the device's free memory."""
-        if n_chunks * self.C > ONE_ROW_MAX_POSITIONS:
+    def _one_row_bytes(self, n_chunks: int) -> int:
+        """Peak allocated bytes of a one-row batch of n_chunks chunks, by
+        the measured model (ONE_ROW_BYTES_PER_SLOT)."""
+        slots = self.cells * self.cell_cap
+        return n_chunks * (self.C // 4 + slots * ONE_ROW_BYTES_PER_SLOT)
+
+    def _one_row_fits(self, length: int) -> bool:
+        """Whether the one-row batch can take a genome of `length` codes on
+        this CUDA device: its row fits K1 (MAX_POSITIONS), every window end
+        p + k <= length stays below the padding run start INT32_MAX, and
+        twice _one_row_bytes plus ONE_ROW_RESERVE fits in the device's free
+        memory."""
+        n_chunks = self._bucket(length)
+        if length >= MAX_POSITIONS or n_chunks * self.C > MAX_POSITIONS:
             return False
-        need = (2 * n_chunks * ONE_ROW_BYTES_PER_CHUNK
-                * max(1.0, self.cell_cap / ONE_ROW_CAP) + ONE_ROW_RESERVE)
         free, _ = torch.cuda.mem_get_info(self.device)
-        return need <= free
+        return 2 * self._one_row_bytes(n_chunks) + ONE_ROW_RESERVE <= free
 
     def _sketch_huge(self, g: PackedGenome) -> Dict[str, object]:
         """A genome at or above seqpar_min_chunks. On a CUDA device it runs
@@ -315,7 +324,7 @@ class Sketcher:
         there are several, else tiled on this device. On the CPU it is
         tiled, as the JAX package routes it."""
         if self.device.type == "cuda":
-            if self._one_row_fits(self._bucket(g.length)):
+            if self._one_row_fits(g.length):
                 return self.sketch_batch([g])[0]
             if torch.cuda.device_count() > 1:
                 # imported here: seqpar imports this module

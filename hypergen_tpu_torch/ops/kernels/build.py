@@ -22,12 +22,11 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-# -Xptxas -v: each kernel's registers and shared memory, kept in the
-# library's .log beside it (compiler_log); -split-compile=0: optimise the
-# kernels on all host cores (7 s instead of 16 s for hash_kernel.cu)
+# -split-compile=0: optimise the kernels on all host cores (8-10 s instead
+# of 16 s for hash_kernel.cu)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile=0",
+    "-shared", "-Xcompiler", "-fPIC", "-split-compile=0",
 )
 # no -march=native: the build directory is keyed by source, not by host
 GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-Wall")
@@ -77,7 +76,6 @@ def build(name: str) -> Path:
 
     The compiler writes to a temporary name that is renamed into place, so
     a concurrent or interrupted build never leaves a half-written library.
-    Its output is kept in ``compiler_log(name)``.
     """
     out = library_path(name)
     if out.exists():
@@ -97,19 +95,11 @@ def build(name: str) -> Path:
                 f"{Path(cmd[0]).name} failed for {src.name} "
                 f"({res.returncode}):\n{res.stdout}{res.stderr}"
             )
-        out.with_suffix(".log").write_text(res.stdout + res.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
-
-
-def compiler_log(name: str) -> str:
-    """What the compiler printed when ``csrc/<name>`` was built ("" if the
-    library was built before logs were kept)."""
-    log = library_path(name).with_suffix(".log")
-    return log.read_text() if log.exists() else ""
 
 
 @functools.lru_cache(maxsize=None)

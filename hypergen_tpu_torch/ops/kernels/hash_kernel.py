@@ -28,6 +28,8 @@ from hypergen_tpu_torch.ops.kmers import hash_kmer_positions
 from hypergen_tpu_torch.ops.u64 import U64_MASK
 
 CELLS = 2048  # the packed path's preferred cell count (models.sketcher)
+# positions of one K1 row at most: its int32 `pos` holds 0 .. 2^31 - 1
+MAX_POSITIONS = 1 << 31
 
 
 def _check(packed_words, n_pos, n_chunks, chunk_positions, ksize, cells,
@@ -58,7 +60,7 @@ def _check(packed_words, n_pos, n_chunks, chunk_positions, ksize, cells,
     need = n_chunks * (C // 16) + t_w - lsub // 16
     if W < need:
         raise ValueError(f"packed row too short: {W} words < {need}")
-    if n_chunks * C > 1 << 31:
+    if n_chunks * C > MAX_POSITIONS:
         raise ValueError(
             f"{n_chunks} chunks of {C} positions exceed the int32 positions"
         )

@@ -17,7 +17,11 @@ import torch
 
 from hypergen_tpu import params as jax_params
 from hypergen_tpu.models.sketcher import Sketcher as JaxSketcher
-from hypergen_tpu_torch.io.fastx import INVALID, packed_from_codes
+from hypergen_tpu_torch.io.fastx import (
+    INVALID,
+    PackedGenome,
+    packed_from_codes,
+)
 from hypergen_tpu_torch.params import SketchParams
 from hypergen_tpu_torch.models import sketcher as ts
 from hypergen_tpu_torch.parallel import seqpar
@@ -146,32 +150,36 @@ def test_sketch_files_routes_tiled_on_one_device(tmp_path, monkeypatch):
 
 
 GIB = 1 << 30
+MAX = ts.MAX_POSITIONS
 
 
-@pytest.mark.parametrize("device,cards,free,max_pos,route", [
+@pytest.mark.parametrize("device,cards,free,length,route", [
     # the CPU routes as the JAX package: tiled, whatever the memory
-    ("cpu", 4, 80 * GIB, ts.ONE_ROW_MAX_POSITIONS, "tiled"),
+    ("cpu", 4, 80 * GIB, 3000, "tiled"),
     # CUDA: the one-row batch wherever it fits, on one card or several
-    ("cuda", 1, 80 * GIB, ts.ONE_ROW_MAX_POSITIONS, "one-row"),
-    ("cuda", 2, 80 * GIB, ts.ONE_ROW_MAX_POSITIONS, "one-row"),
+    ("cuda", 1, 80 * GIB, 3000, "one-row"),
+    ("cuda", 2, 80 * GIB, 3000, "one-row"),
     # past the memory estimate: tiled on one card, seqpar on several
-    ("cuda", 1, 1 * GIB, ts.ONE_ROW_MAX_POSITIONS, "tiled"),
-    ("cuda", 2, 1 * GIB, ts.ONE_ROW_MAX_POSITIONS, "seqpar"),
-    # past the int32 positions of K1's `pos` (lowered here to 1024)
-    ("cuda", 1, 80 * GIB, 1024, "tiled"),
-    ("cuda", 4, 80 * GIB, 1024, "seqpar"),
+    ("cuda", 1, 1 * GIB, 3000, "tiled"),
+    ("cuda", 2, 1 * GIB, 3000, "seqpar"),
+    # past the int32 positions: a genome of 2^31 codes
+    ("cuda", 1, 80 * GIB, MAX, "tiled"),
+    ("cuda", 4, 80 * GIB, MAX, "seqpar"),
+    # the longest genome the one-row batch takes: 2^31 - 1 codes
+    ("cuda", 1, 80 * GIB, MAX - 1, "one-row"),
 ])
-def test_huge_genome_route(monkeypatch, device, cards, free, max_pos, route):
+def test_huge_genome_route(monkeypatch, device, cards, free, length, route):
     """On a CUDA Sketcher the one-row batch while it fits K1's int32
     positions and the card's free memory, then seqpar with more than one
-    card and tiled with one; on the CPU tiled, as the JAX package routes."""
+    card and tiled with one; on the CPU tiled, as the JAX package routes.
+    Every route is stubbed, so a genome's length alone steers it."""
     p = SketchParams(hv_d=HV_D, scaled=SCALED)
     sk = _port(p, seqpar_min_chunks=16)
     sk.device = torch.device(device)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda dev=None: (free, 80 * GIB))
-    monkeypatch.setattr(ts, "ONE_ROW_MAX_POSITIONS", max_pos)
+    monkeypatch.setattr(ts, "codes_from_packed", lambda g: None)
     seen = []
     monkeypatch.setattr(sk, "sketch_batch",
                         lambda gs: seen.append("one-row") or [None])
@@ -181,19 +189,39 @@ def test_huge_genome_route(monkeypatch, device, cards, free, max_pos, route):
                         lambda codes, params, chunk_positions:
                         seen.append("seqpar"))
     # 3000 bp: a 2-chunk bucket of 2048 positions
-    sk._sketch_huge(packed_from_codes(np.zeros(3000, np.uint8)))
+    sk._sketch_huge(PackedGenome(np.zeros(1, np.uint8),
+                                 np.zeros((0, 2), np.int32), length))
     assert seen == [route]
 
 
 def test_one_row_estimate_scales_with_cap(monkeypatch):
-    """The memory estimate grows with the bucket and with a cell cap above
-    the one it was measured at, and keeps the reserve free."""
+    """The memory estimate is the packed words plus ONE_ROW_BYTES_PER_SLOT
+    for each slot, so it grows with the bucket and with the cell cap; the
+    router doubles it and keeps the reserve free."""
     p = SketchParams(hv_d=HV_D, scaled=SCALED)
     sk = _port(p)
-    base = 2 * ts.ONE_ROW_BYTES_PER_CHUNK + ts.ONE_ROW_RESERVE
+    per_chunk = C // 4 + sk.cells * sk.cell_cap * ts.ONE_ROW_BYTES_PER_SLOT
+    assert sk._one_row_bytes(8) == 8 * per_chunk
     monkeypatch.setattr(torch.cuda, "mem_get_info",
-                        lambda dev=None: (base, 80 * GIB))
-    assert sk.cell_cap <= ts.ONE_ROW_CAP
-    assert sk._one_row_fits(1) and not sk._one_row_fits(2)
-    sk.cell_cap = 4 * ts.ONE_ROW_CAP
-    assert not sk._one_row_fits(1)
+                        lambda dev=None: (2 * per_chunk + ts.ONE_ROW_RESERVE,
+                                          80 * GIB))
+    assert sk._one_row_fits(C) and not sk._one_row_fits(C + 100)  # 1, 2 chunks
+    sk.cell_cap *= 4
+    assert not sk._one_row_fits(C)
+
+
+def test_run_postfilter_at_int32_limit():
+    """The last windows of the longest genome the router sends to the
+    one-row batch (2^31 - 1 codes): with no runs (only the padding row,
+    which starts at INT32_MAX) every window is kept; a run at the genome's
+    end drops exactly the windows that overlap it."""
+    k = 21
+    L = MAX - 1
+    pos = torch.arange(L - k - 40, L - k + 1, dtype=torch.int32)[None]
+    pad = torch.full((1, 1, 2), 0x7FFFFFFF, dtype=torch.int32)
+    assert bool(ts.filter_positions_by_runs(pos, pad, k).all())
+    run = (L - 30, L - 25)
+    runs = torch.cat([torch.tensor([[run]], dtype=torch.int32), pad], dim=1)
+    got = ts.filter_positions_by_runs(pos, runs, k)[0].tolist()
+    want = [not (p < run[1] and run[0] < p + k) for p in pos[0].tolist()]
+    assert got == want and not all(want) and any(want)
