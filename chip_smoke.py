@@ -18,13 +18,21 @@ one-row batch, which must agree; it measures the one-row batch's peak
 memory at 2^27, 2^29 and 2^31 - 1 bp (the longest genome the router gives
 it, where it must equal the tiled route) against the router's estimate,
 and it checks the sequence-parallel and tiled routes and the routing on
-the card, with its memory free and held down, against the CPU. Every phase prints one line; any failure raises and exits
-non-zero before the last line. The last two lines are the kernel table and
+the card, with its memory free and held down, against the CPU. Phase 12
+drives the database path: `search --top_k 10` of 4,096 queries against a
+synthetic 131,072-genome `.hgdb` (the 16 real sketches and families of
+near copies, made on the card from a seed) through the CLI and through the
+sharded search over [cuda:0] x 4, `dist -a 95` of its first 16,384 rows,
+card-vs-CPU TSVs on a subset, the exact dot's float64 and int8 modes timed
+at 2048 x 2048 x 4096, and `sketch -o .hgdb --shards 4` with `--resume` and
+`hist`, card against CPU. Every phase prints its lines; any failure raises
+and exits non-zero before the last line. The last two lines are the kernel table and
 the result, each one JSON object.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gzip
 import json
 import statistics
@@ -800,6 +808,449 @@ def huge_card_vs_cpu(torch, tmp: Path) -> None:
               f"identical on the card and the CPU; n_hashes {a['n_hashes']}")
 
 
+# -- phase 12: the database path ----------------------------------------------
+
+DB_ROWS = 1 << 17  # 131,072 genomes: GTDB r220 has 113,104 species reps
+DB_SHARDS = 8
+FAMILY = 16  # synthetic rows per family of near copies
+N_QUERIES, SELF_QUERIES = 4096, 1024
+TOP_K = 10
+DEREP_ROWS = 1 << 14  # `dist -a 95` of the first 16,384 rows
+SUB_ROWS, SUB_QUERIES = 8192, 512  # card-vs-CPU TSVs
+RESUME_BP = 300_000  # the four genomes a --resume adds
+DOT_M = DOT_N = 2048
+# Bounds of the exact dot, from NVIDIA's H100 SXM data sheet: 1,979 TOPS of
+# dense int8 tensor-core operations, 67 TFLOP/s of float64 (tensor core)
+INT8_OPS_PER_S = 1979e12
+FP64_FLOPS_PER_S = 67e12
+
+
+def count_calls(torch):
+    """Count calls of torch._int_mm (the int8 tensor-core products) and of
+    torch.matmul (the float64 direct dot) until the returned restore()."""
+    counts = {"_int_mm": 0, "matmul": 0}
+    orig = torch._int_mm, torch.matmul
+
+    def int_mm(*a, **k):
+        counts["_int_mm"] += 1
+        return orig[0](*a, **k)
+
+    def matmul(*a, **k):
+        counts["matmul"] += 1
+        return orig[1](*a, **k)
+
+    def restore():
+        torch._int_mm, torch.matmul = orig
+
+    torch._int_mm, torch.matmul = int_mm, matmul
+    return counts, restore
+
+
+def wrap_norms(torch, hv, block: int = 1 << 14):
+    """Wrapping-int32 norm^2 of each int16 row of hv (numpy), on the card."""
+    import numpy as np
+
+    from hypergen_tpu_torch.ops.encode import hv_norm2_i32
+
+    return np.concatenate([
+        hv_norm2_i32(torch.from_numpy(hv[i : i + block]).cuda()).cpu().numpy()
+        for i in range(0, hv.shape[0], block)])
+
+
+def synth_db(torch, real, seed: int):
+    """The 131,072-row database and its 4,096 queries, made on the card.
+
+    Rows: the 16 real sketches, then families of FAMILY near copies: member
+    i = sqrt(1 - p_i) S + sqrt(p_i) E_i with S, E_i Gaussian of the real
+    sketches' standard deviation (the range a 4.19 Mbp genome's HV has at
+    scaled 1500) and p_i uniform in [0.01, 0.91], so the ANI within a
+    family spans about 89-100 % and across families about 0. Queries: 1,024
+    DB rows (which must hit themselves at 100.000), then 3,072 new members
+    of random families. Returns (db, queries) as ShardedDBs."""
+    import numpy as np
+
+    from hypergen_tpu_torch.io.sketch_db import ShardedDB
+
+    D = real.hv_d
+    sigma = float(real.hvs.astype(np.float64).std())
+    n_fam = (DB_ROWS - len(real.names)) // FAMILY
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shared = torch.randn((n_fam, D), generator=g, device="cuda") * sigma
+
+    def members(fam):  # fam: int64 tensor of family ids
+        p = torch.rand((fam.numel(), 1), generator=g, device="cuda") * 0.9
+        p += 0.01
+        hv = shared[fam] * (1 - p).sqrt()
+        hv += torch.randn((fam.numel(), D), generator=g, device="cuda") * (
+            sigma * p.sqrt())
+        return hv.round_().to(torch.int16).cpu().numpy()
+
+    fam_ids = torch.arange(n_fam, device="cuda").repeat_interleave(FAMILY)
+    hv = np.concatenate([real.hvs] + [
+        members(fam_ids[i : i + (1 << 14)])
+        for i in range(0, fam_ids.numel(), 1 << 14)])
+    names = list(real.names) + [f"fam{f:05d}_m{j:02d}" for f in range(n_fam)
+                                for j in range(FAMILY)]
+    rng = np.random.default_rng(seed)
+    self_rows = np.sort(rng.choice(hv.shape[0], SELF_QUERIES, replace=False))
+    q_fam = rng.integers(0, n_fam, N_QUERIES - SELF_QUERIES)
+    q_hv = np.concatenate([hv[self_rows], members(torch.from_numpy(q_fam)
+                                                  .cuda())])
+    q_names = [names[r] for r in self_rows] + [
+        f"query{j:04d}_fam{f:05d}" for j, f in enumerate(q_fam)]
+    del shared
+
+    def db(n, h):
+        return ShardedDB(ksize=real.ksize, scaled=real.scaled,
+                         canonical=real.canonical, seed=real.seed, hv_d=D,
+                         names=n, hvs=h, norms=wrap_norms(torch, h))
+
+    return db(names, hv), db(q_names, q_hv)
+
+
+def family(name: str) -> str:
+    """The family of a synthetic row or query name ('' for a real genome)."""
+    return name.split("fam")[1][:5] if "fam" in name and "/" not in name \
+        else ""
+
+
+def read_hits(path: Path):
+    """{query: [(ref, ani string), ...]} of a search TSV, in file order."""
+    hits = {}
+    for line in path.read_text().splitlines():
+        ref, query, ani = line.split("\t")
+        hits.setdefault(query, []).append((ref, ani))
+    return hits
+
+
+def profiled(torch, fn):
+    """(result, wall s, device busy ms, the top device ops) of fn() under
+    torch.profiler: busy is the sum of the kernels' device times (None
+    when the trace holds none); the profiler's own cost is in the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    kernels = sorted(
+        ((e.self_device_time_total / 1e3, e.key, e.count)
+         for e in prof.key_averages()
+         if str(e.device_type).endswith("CUDA")), reverse=True)
+    busy = sum(ms for ms, _, _ in kernels)
+    top = "; ".join(f"{name[:60]} x{n} {ms:.3f} ms"
+                    for ms, name, n in kernels[:6])
+    return res, wall, busy or None, top
+
+
+def idle_text(wall: float, busy, top: str) -> str:
+    if busy is None:
+        return "device busy time not measured (no device events traced)"
+    return (f"device busy {busy:.3f} ms of {wall * 1e3:.3f} ms wall under "
+            f"the profiler: idle share {1 - busy / (wall * 1e3):.4f}; top "
+            f"kernels: {top}")
+
+
+def timed_cli(torch, argv):
+    """(wall seconds, peak bytes allocated on cuda:0) of one CLI call."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(0)
+    secs = run_cli(argv)
+    torch.cuda.synchronize()
+    return secs, torch.cuda.max_memory_allocated(0)
+
+
+def database_search(torch, tmp: Path, real) -> dict:
+    """Phase 12, the database: `search --top_k 10 -a 80` of 4,096 queries
+    against the 131,072-row .hgdb through the CLI (every card) and through
+    sharded_topk_search over [cuda:0] x 4, identical TSVs; `dist -a 95` of
+    its first 16,384 rows; card-vs-CPU TSV bytes of `search` and `dist` on
+    8,192 rows and 512 queries. Returns the database as loaded."""
+    import numpy as np
+
+    from hypergen_tpu_torch.io.sketch_db import dump_sharded_db, load_sharded_db
+    from hypergen_tpu_torch.models.comparator import Comparator
+    from hypergen_tpu_torch.parallel.search import (
+        sharded_topk_search, topk_search, write_search_tsv,
+    )
+
+    t0 = time.monotonic()
+    db, qs = synth_db(torch, real, SEED + 6)
+    gen_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    dump_sharded_db(db, tmp / "db.hgdb", n_shards=DB_SHARDS)
+    dump_sharded_db(qs, tmp / "q.hgdb")
+    write_s = time.monotonic() - t0
+    check(db.hvs.shape == (DB_ROWS, real.hv_d), "database shape")
+    phase(12, f"{DB_ROWS} x {real.hv_d} int16 database ({db.hvs.nbytes} B, "
+              f"|v| <= {max(int(db.hvs.max()), -int(db.hvs.min()))}) and "
+              f"{N_QUERIES} queries made on the card in {gen_s:.3f} s, "
+              f"written as {DB_SHARDS} shards in {write_s:.3f} s")
+    cards = torch.cuda.device_count()
+    hits_cli = tmp / "hits.tsv"
+    counts, restore = count_calls(torch)
+    try:
+        secs, peak = timed_cli(torch, [
+            "search", "-r", str(tmp / "db.hgdb"), "-q", str(tmp / "q.hgdb"),
+            "-o", str(hits_cli), "--top_k", str(TOP_K), "-a", "80",
+            "-D", DEVICE])
+        calls = dict(counts)
+        check(calls["_int_mm"] > 0 and calls["matmul"] == 0,
+              f"search on the card: calls {calls}, want the int8 products "
+              f"and no float64 matmul")
+        phase(12, f"CLI search ({cards} card(s); "
+                  f"{'row tiles of 65,536' if cards == 1 else 'one sharded pass'}"
+                  f"): {secs:.3f} s wall with loading, peak allocated on "
+                  f"cuda:0 {peak} B; torch._int_mm calls {calls['_int_mm']}, "
+                  f"float64 matmul calls {calls['matmul']}")
+        t0 = time.monotonic()
+        db = load_sharded_db(tmp / "db.hgdb")  # as the CLI loads it
+        load_s = time.monotonic() - t0
+        card = torch.device(DEVICE, 0)
+        _, wall, busy, top = profiled(torch, lambda: topk_search(
+            [card], db.hvs, db.norms, qs.hvs, qs.norms, db.ksize, TOP_K))
+        phase(12, f"where the CLI search's time goes: loading the .hgdb "
+                  f"{load_s:.3f} s; the one-card route on arrays in memory "
+                  f"(bound scan, uploads, two row tiles) {wall:.3f} s; "
+                  f"{idle_text(wall, busy, top)}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(0)
+        t0 = time.monotonic()
+        ani, idx, dot = sharded_topk_search(
+            [card] * 4, db.hvs, db.norms, qs.hvs, qs.norms, db.ksize, TOP_K)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated(0)
+        write_search_tsv(tmp / "hits_sharded.tsv", db.names, db.norms, qs,
+                         ani, idx, dot, 80.0)
+        check(hits_cli.read_bytes() == (tmp / "hits_sharded.tsv").read_bytes(),
+              "search TSV: CLI != sharded_topk_search over [cuda:0] x 4")
+        phase(12, f"sharded_topk_search over [cuda:0] x 4: {secs:.3f} s "
+                  f"(arrays in memory), peak allocated {peak} B; TSV "
+                  f"identical to the CLI's")
+        if cards > 1:
+            t0 = time.monotonic()
+            ani, idx, dot = sharded_topk_search(
+                [torch.device(DEVICE, i) for i in range(cards)], db.hvs,
+                db.norms, qs.hvs, qs.norms, db.ksize, TOP_K)
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+            write_search_tsv(tmp / "hits_all.tsv", db.names, db.norms, qs,
+                             ani, idx, dot, 80.0)
+            check(hits_cli.read_bytes() == (tmp / "hits_all.tsv").read_bytes(),
+                  "search TSV: CLI != sharded_topk_search over every card")
+            phase(12, f"sharded_topk_search over all {cards} cards: "
+                      f"{secs:.3f} s; TSV identical")
+        hits = read_hits(hits_cli)
+        self_names = qs.names[:SELF_QUERIES]
+        check(all(hits[n][0] == (n, "100.000") for n in self_names),
+              "a DB row queried did not hit itself first at 100.000")
+        wrong = [q for q in qs.names[SELF_QUERIES:]
+                 if q not in hits or family(hits[q][0][0]) != family(q)]
+        check(not wrong, f"{len(wrong)} perturbed queries missed their "
+                         f"family: {wrong[:3]}")
+        n_rows = sum(len(v) for v in hits.values())
+        phase(12, f"search hits: {n_rows} rows >= 80; all {SELF_QUERIES} "
+                  f"DB rows hit themselves first at 100.000; all "
+                  f"{N_QUERIES - SELF_QUERIES} perturbed queries hit their "
+                  f"family first")
+
+        # dereplication: the first 16,384 rows against themselves
+        first = dataclasses.replace(db, names=db.names[:DEREP_ROWS],
+                                    hvs=db.hvs[:DEREP_ROWS],
+                                    norms=db.norms[:DEREP_ROWS])
+        dump_sharded_db(first, tmp / "derep.hgdb", n_shards=2)
+        counts.update(_int_mm=0, matmul=0)
+        secs, peak = timed_cli(torch, [
+            "dist", "-r", str(tmp / "derep.hgdb"), "-q",
+            str(tmp / "derep.hgdb"), "-o", str(tmp / "derep.tsv"), "-a", "95",
+            "-D", DEVICE])
+        calls = dict(counts)
+        check(calls["_int_mm"] == 36 * 3 and calls["matmul"] == 0,
+              f"dist on the card: calls {calls}, want 36 tiles x 3 int8 "
+              f"products and no float64 matmul")
+        rows = [line.split("\t") for line in
+                (tmp / "derep.tsv").read_text().splitlines()]
+        check(rows and all(float(v) >= 95.0 for _, _, v in rows)
+              and all(family(a) == family(b) for a, b, _ in rows),
+              "dist -a 95: a row below 95 or across families")
+        phase(12, f"dist -a 95 of {DEREP_ROWS} rows against themselves "
+                  f"(36 of 64 tiles of 2048): {secs:.3f} s wall with "
+                  f"loading, {len(rows)} pairs, peak allocated {peak} B; "
+                  f"torch._int_mm calls {calls['_int_mm']}, float64 matmul "
+                  f"calls {calls['matmul']}")
+        comp = Comparator(db.ksize, device=card)
+        _, wall, busy, top = profiled(
+            torch, lambda: comp.ani_pairs_thresholded(first, first, True, 95.0))
+        phase(12, f"where dist's time goes: ani_pairs_thresholded on the "
+                  f"arrays in memory {wall:.3f} s; "
+                  f"{idle_text(wall, busy, top)}")
+    finally:
+        restore()
+
+    # card vs CPU, TSV bytes, on 8,192 rows and 512 mixed queries
+    sub = dataclasses.replace(db, names=db.names[:SUB_ROWS],
+                              hvs=db.hvs[:SUB_ROWS], norms=db.norms[:SUB_ROWS])
+    pick = slice(0, N_QUERIES, N_QUERIES // SUB_QUERIES)
+    sq = dataclasses.replace(qs, names=qs.names[pick], hvs=qs.hvs[pick],
+                             norms=qs.norms[pick])
+    dump_sharded_db(sub, tmp / "sub.hgdb", n_shards=2)
+    dump_sharded_db(sq, tmp / "subq.hgdb")
+    for dev in (DEVICE, "cpu"):
+        run_cli(["search", "-r", str(tmp / "sub.hgdb"), "-q",
+                 str(tmp / "subq.hgdb"), "-o", str(tmp / f"sub_s_{dev}.tsv"),
+                 "--top_k", str(TOP_K), "-a", "80", "-D", dev])
+        run_cli(["dist", "-r", str(tmp / "sub.hgdb"), "-q",
+                 str(tmp / "subq.hgdb"), "-o", str(tmp / f"sub_d_{dev}.tsv"),
+                 "-a", "80", "-D", dev])
+    for what in ("s", "d"):
+        a = (tmp / f"sub_{what}_{DEVICE}.tsv").read_bytes()
+        check(a and a == (tmp / f"sub_{what}_cpu.tsv").read_bytes(),
+              f"{'search' if what == 's' else 'dist'} on {SUB_ROWS} x "
+              f"{SUB_QUERIES}: card != CPU")
+    phase(12, f"search --top_k {TOP_K} -a 80 and dist -a 80 of "
+              f"{SUB_QUERIES} queries against {SUB_ROWS} rows: TSVs "
+              f"byte-identical, card (int8) vs CPU (float64 direct dot)")
+    return db
+
+
+def dot_timings(torch, db) -> None:
+    """Phase 12, the exact dot at 2048 x 2048 x 4096 on the card: float64,
+    the int8 4-way and 3-product splits (whole and with r presplit, as the
+    resident DB runs), their int8 products alone, the split of one
+    operand and the elementwise rest; each mode equal to the float64 dot on real-range rows, and the
+    4-way dot on full-range rows with int32-wrapping extremes. Median of
+    12 by CUDA events."""
+    import numpy as np
+
+    from hypergen_tpu_torch.ops import ani
+
+    D = db.hv_d
+    r = torch.from_numpy(db.hvs[:DOT_M]).cuda()
+    q = torch.from_numpy(db.hvs[DOT_M : DOT_M + DOT_N]).cuda()
+    ref = ani.dot_i16_exact(r, q, False)
+    for mode in (True, "small"):
+        check(torch.equal(ani.dot_i16_exact(r, q, mode), ref),
+              f"dot mode {mode} != float64 on the database rows")
+    rng = np.random.default_rng(SEED + 7)
+    wide = rng.integers(-32768, 32768, size=(2 * DOT_M, D)).astype(np.int16)
+    wide[0], wide[DOT_M], wide[1], wide[DOT_M + 1] = 32767, 32767, -32768, 32767
+    wide[2, ::2], wide[DOT_M + 2] = -6176, 6175
+    rw = torch.from_numpy(wide[:DOT_M]).cuda()
+    qw = torch.from_numpy(wide[DOT_M:]).cuda()
+    exact = (wide[:3].astype(np.int64) @ wide[DOT_M : DOT_M + 3]
+             .astype(np.int64).T)
+    got = ani.dot_i16_exact(rw, qw, True)
+    check(torch.equal(got, ani.dot_i16_exact(rw, qw, False))
+          and np.array_equal(got[:3, :3].cpu().numpy(),
+                             exact.astype(np.int32))
+          and abs(int(exact[0, 0])) > 2**31,
+          "4-way dot != float64 on full-range rows")
+    del rw, qw, got
+    split4 = ani.presplit_rows(r)
+    small = ani.presplit_rows_small(r)
+    qh, ql = ani.split_i16_to_i8(q)
+    sh, sl = ani._split_small(q)
+    shl = sh + sl
+    mm = torch._int_mm
+    t = {
+        "float64": time_ms(torch, lambda: ani.dot_i16_exact(r, q, False)),
+        "int8_4way": time_ms(torch, lambda: ani.dot_i16_exact(r, q, True)),
+        "int8_small": time_ms(torch,
+                              lambda: ani.dot_i16_exact(r, q, "small")),
+        "int8_4way_presplit": time_ms(
+            torch, lambda: ani.dot_i16_presplit(*split4, q)),
+        "int8_small_presplit": time_ms(
+            torch, lambda: ani.dot_i16_presplit_small(small, q)),
+        "products_4way": time_ms(torch, lambda: (
+            mm(split4[0], qh.T), mm(split4[0], ql.T), mm(split4[1], qh.T),
+            mm(split4[1], ql.T))),
+        "products_small": time_ms(torch, lambda: (
+            mm(small.h, sh.T), mm(small.l, sl.T), mm(small.hl, shl.T))),
+        "split_4way_q": time_ms(torch, lambda: ani.split_i16_to_i8(q)),
+        "split_small_q": time_ms(torch, lambda: ani._split_small(q)),
+    }
+    # the elementwise share of the presplit dot (the split of q and the
+    # combine): the presplit dot less its products, a difference of medians
+    for m in ("4way", "small"):
+        t[f"elementwise_{m}"] = t[f"int8_{m}_presplit"] - t[f"products_{m}"]
+    macs = DOT_M * DOT_N * D
+    bounds = {"float64": 2 * macs / FP64_FLOPS_PER_S * 1e3,
+              "int8_4way": 4 * 2 * macs / INT8_OPS_PER_S * 1e3,
+              "int8_small": 3 * 2 * macs / INT8_OPS_PER_S * 1e3}
+    # each input read once and the int32 output written once
+    byte_ms = (2 * (DOT_M + DOT_N) * D + 4 * DOT_M * DOT_N) / HBM_BYTES_PER_S * 1e3
+    phase(12, f"exact dot {DOT_M} x {DOT_N} x {D}, median of 12 (CUDA "
+              f"events), ms: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+          + "; bounds by operations: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in bounds.items())
+          + f" (bytes {byte_ms:.4f}); every mode equal to float64, the "
+            f"4-way dot also on full-range rows with int32-wrapping "
+            f"extremes")
+
+
+def hgdb_cli(torch, tmp: Path) -> None:
+    """Phase 12, the .hgdb CLI: the 16 genomes of phase 5 through `sketch
+    -o db.hgdb --shards 4`, then four more (300 kb) through `--resume`, and
+    a resume with nothing left, on the card and with -D cpu: every file of
+    the two directories equal, and `hist` of the two equal."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from hypergen_tpu_torch.ops.kernels.hash_kernel import hash_packed_rows
+
+    gdir = tmp / "genomes"
+    for dev in (DEVICE, "cpu"):
+        hash_packed_rows.launches = 0
+        secs = run_cli(["sketch", "-p", str(gdir), "-o",
+                        str(tmp / f"{dev}.hgdb"), "--shards", "4", "-D", dev])
+        phase(12, f"sketch -o {dev}.hgdb --shards 4 of 16 genomes on "
+                  f"{dev}: {secs:.3f} s, K1 launches "
+                  f"{hash_packed_rows.launches}")
+    rng = np.random.default_rng(SEED + 8)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    for i in range(4):
+        seq = acgt[rng.integers(0, 4, size=RESUME_BP)].tobytes()
+        (gdir / f"resumed_{i}.fna").write_bytes(
+            fasta([(b"resumed%d" % i, seq)]))
+    for dev in (DEVICE, "cpu"):
+        for again in (False, True):
+            d = tmp / f"{dev}.hgdb"
+            before = {p.name: p.read_bytes() for p in d.iterdir()}
+            run_cli(["sketch", "-p", str(gdir), "-o", str(d), "--resume",
+                     "-D", dev])
+            after = {p.name: p.read_bytes() for p in d.iterdir()}
+            check(all(after[n] == b for n, b in before.items()
+                      if n.endswith(".npy")), f"{dev}: a shard was rewritten")
+            check(len(after) == len(before) + (0 if again else 2)
+                  and (not again or after == before),
+                  f"{dev}: resume {'with nothing left ' if again else ''}"
+                  f"wrote {sorted(set(after) - set(before))}")
+    card, cpu = tmp / f"{DEVICE}.hgdb", tmp / "cpu.hgdb"
+    names = sorted(p.name for p in card.iterdir())
+    check(names == sorted(p.name for p in cpu.iterdir())
+          and all((card / n).read_bytes() == (cpu / n).read_bytes()
+                  for n in names), ".hgdb: card != CPU")
+    hists = []
+    for d in (card, cpu):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run_cli(["hist", "-r", str(d)])
+        hists.append(buf.getvalue())
+    check(hists[0] and hists[0] == hists[1], "hist: card .hgdb != CPU")
+    phase(12, f"--resume added 4 genomes as one shard (existing shards "
+              f"untouched), a second resume changed nothing; all "
+              f"{len(names)} files of the .hgdb and hist's "
+              f"{len(hists[0].splitlines())} lines identical, card vs CPU")
+
+
 def main() -> None:
     import torch
 
@@ -855,6 +1306,14 @@ def main() -> None:
         card_vs_cpu(Path(tmp), genomes)
         huge = huge_genome(torch, Path(tmp))
         huge_card_vs_cpu(torch, Path(tmp))
+
+        # 12. the database path: search, dist, the dot, .hgdb and hist
+        from hypergen_tpu_torch.cli import _load_db
+
+        db = database_search(torch, Path(tmp), _load_db(Path(tmp) / "db.sketch"))
+        dot_timings(torch, db)
+        del db
+        hgdb_cli(torch, Path(tmp))
 
     check("jax" not in sys.modules, "jax was imported")
     leaked = sorted(m for m in sys.modules if m.startswith("hypergen_tpu")

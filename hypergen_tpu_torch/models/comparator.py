@@ -1,26 +1,30 @@
-"""ANI comparator: tiled exact dots on the device, reference-exact TSV.
+"""ANI comparator: tiled exact dots on the device, reference-exact TSVs.
 
-Counterpart of ``hypergen_tpu.models.comparator`` for ``dist``. The
-all-pairs loop of the reference (reference:src/dist.rs:11-63) becomes tiled
-matrix products; every printed ANI comes from the host float32 chain, so
-the TSV is byte-identical to the JAX package's. The host-only functions
-below are copies of the JAX module's, which imports jax at its top.
+Counterpart of ``hypergen_tpu.models.comparator`` for `dist` and
+`search`. The all-pairs loop of the reference (reference:src/dist.rs:11-63)
+becomes tiled matrix products against a reference DB held on the device
+split into int8 planes once (``preload_rows``); every printed ANI comes from
+the host float32 chain, so the TSVs are byte-identical to the JAX package's.
+The host-only functions below are copies of the JAX module's, which imports
+jax at its top.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import List, Tuple
+from collections import OrderedDict
+from typing import Iterator, List, Tuple
 
 import numpy as np
 import torch
 
 from hypergen_tpu_torch.io.sketch_db import ShardedDB
-from hypergen_tpu_torch.ops.ani import dot_i16_exact, dot_threshold_compact
+from hypergen_tpu_torch.ops.ani import (
+    SMALL_SPLIT_MAX, abs_bound, dot_i16_any, dot_threshold_compact,
+    presplit_rows, presplit_rows_small,
+)
 
 log = logging.getLogger("hypergen")
-
-_TSV_CHUNK_ROWS = 1 << 19
 
 
 def db_to_tensors(db: ShardedDB, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -64,7 +68,7 @@ def _ani_chain(
     return (ani * np.float32(100.0)).astype(np.float32)
 
 
-def _ani_host_pairs(
+def ani_host_pairs(
     dot: np.ndarray, norm2_r: np.ndarray, norm2_q: np.ndarray, ksize: int
 ) -> np.ndarray:
     """Exact host float32 ANI chain for flat pair vectors (not matrices)."""
@@ -74,7 +78,7 @@ def _ani_host_pairs(
 
 
 def _tile_below_diagonal(gi_min: int, gj_min: int, tn: int) -> bool:
-    """True if a [tm x tn] tile at (gi_min, gj_min) has no i < j pair.
+    """True if a [tm x tn] tile at global (gi_min, gj_min) has no i < j pair.
 
     Symmetric dist enumerates only j > i (reference:src/dist.rs:243-265),
     so such tiles are skipped before the matrix product.
@@ -83,35 +87,148 @@ def _tile_below_diagonal(gi_min: int, gj_min: int, tn: int) -> bool:
 
 
 class Comparator:
-    """Tiled exact int32 dot matrices between sketch DBs on one device."""
+    """Tiled exact int32 dot matrices between sketch DBs on one device.
+
+    mode: the dot mode of ``ops.ani`` (None: the int8 split on a CUDA
+    device, upgraded to "small" per call when the values fit; the direct
+    dot on the CPU)."""
+
+    # dense all-pairs is an exhaustive-table utility (tests, small sets);
+    # above this it would allocate multi-GB host float matrices
+    MAX_DENSE_PAIRS = 1 << 25
 
     def __init__(self, ksize: int, device="cuda", tile_m: int = 2048,
-                 tile_n: int = 2048):
+                 tile_n: int = 2048, mode=None):
         self.ksize = ksize
         self.device = torch.device(device)
         self.tile_m = tile_m
         self.tile_n = tile_n
+        self.mode = self.device.type == "cuda" if mode is None else mode
+        # LRU of id(array) -> (array, bound): holding the array keeps its
+        # id valid, so the cache stays small (streamed callers pass a new
+        # slice per chunk)
+        self._bound_cache: "OrderedDict[int, tuple]" = OrderedDict()
+        self._bound_cache_max = 4
 
-    def _tiles(self, ref_db: ShardedDB, query_db: ShardedDB, symmetric: bool):
-        """Yield (mi, nj, r_hv, r_norm, q_hv, q_norm) device tiles, query
-        tiles outer so each crosses to the device once; tiles with no i < j
-        pair are skipped in the symmetric case."""
-        r_hv, r_norm = db_to_tensors(ref_db, self.device)
-        q_hv, q_norm = (
-            (r_hv, r_norm) if query_db is ref_db
-            else db_to_tensors(query_db, self.device)
-        )
+    def _bound(self, a: np.ndarray) -> int:
+        hit = self._bound_cache.get(id(a))
+        if hit is not None and hit[0] is a:
+            self._bound_cache.move_to_end(id(a))
+            return hit[1]
+        b = abs_bound(a)
+        self._bound_cache[id(a)] = (a, b)
+        while len(self._bound_cache) > self._bound_cache_max:
+            self._bound_cache.popitem(last=False)
+        return b
+
+    def dot_mode(self, *hv_arrays):
+        """Per-call mode: the 3-product split when every HV value of the
+        operands fits SMALL_SPLIT_MAX, once per DB (the bound scan is
+        memoized per array object)."""
+        if self.mode is True and all(
+            self._bound(a) <= SMALL_SPLIT_MAX for a in hv_arrays
+        ):
+            return "small"
+        return self.mode
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def preload_rows(self, hv: np.ndarray) -> List:
+        """Row tiles uploaded once, for reuse across query tiles.
+
+        With an int8 mode the tiles are stored split: SmallSplit (h, l,
+        h + l) when the rows fit SMALL_SPLIT_MAX, else (hi, lo, row); the
+        elementwise split then never repeats per query tile. An over-bound
+        query batch against SmallSplit tiles rebuilds the exact rows
+        (dot_i16_any)."""
+        tm = self.tile_m
+        small = self.mode is True and self._bound(hv) <= SMALL_SPLIT_MAX
+        out = []
+        for mi in range(0, hv.shape[0], tm):
+            t = self._upload(hv[mi : mi + tm])
+            if small:
+                t = presplit_rows_small(t)
+            elif self.mode:
+                t = presplit_rows(t)
+            out.append(t)
+        return out
+
+    def preload_ref(self, db: ShardedDB) -> List:
+        """Device-resident (hv, norm) row tiles for ani_pairs_thresholded;
+        hv tiles as preload_rows stores them."""
+        tm = self.tile_m
+        return [
+            (hv, self._upload(db.norms[mi : mi + tm]))
+            for hv, mi in zip(self.preload_rows(db.hvs),
+                              range(0, db.hvs.shape[0], tm))
+        ]
+
+    def dot_tiles(
+        self, r_hv: np.ndarray, q_hv: np.ndarray, r_blocks: List | None = None,
+    ) -> Iterator[Tuple[int, int, np.ndarray]]:
+        """Yield (row_offset, col_offset, int32 dot tile), row tiles outer.
+
+        r_blocks: optional device-resident row tiles from preload_rows."""
+        mode = self.dot_mode(r_hv, q_hv)
+        if r_blocks is None:
+            r_blocks = self.preload_rows(r_hv)
+        tn = self.tile_n
+        for r_dev, mi in zip(r_blocks, range(0, r_hv.shape[0], self.tile_m)):
+            for nj in range(0, q_hv.shape[0], tn):
+                q = self._upload(q_hv[nj : nj + tn])
+                yield mi, nj, dot_i16_any(r_dev, q, mode).cpu().numpy()
+
+    def ani_pairs(
+        self, ref_db: ShardedDB, query_db: ShardedDB, symmetric: bool,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """All pair ANIs in reference enumeration order: i over refs, j over
+        queries, j > i when symmetric (reference:src/dist.rs:252-265).
+
+        Refused past MAX_DENSE_PAIRS (the dense M x N host matrix); the
+        streamed path returns identical ANIs with O(survivors) memory."""
+        M, N = ref_db.hvs.shape[0], query_db.hvs.shape[0]
+        if symmetric and N != M:
+            raise ValueError("symmetric dist requires square pair matrix")
+        if M * N > self.MAX_DENSE_PAIRS:
+            raise ValueError(
+                f"ani_pairs would materialize {M}x{N} = {M * N} host floats "
+                f"(> MAX_DENSE_PAIRS={self.MAX_DENSE_PAIRS}); use "
+                "ani_pairs_streamed(threshold=...) which keeps only "
+                "survivors and returns identical ANI values"
+            )
+        ani_full = np.zeros((M, N), dtype=np.float32)
+        for mi, nj, tile in self.dot_tiles(ref_db.hvs, query_db.hvs):
+            m, n = tile.shape
+            ani_full[mi : mi + m, nj : nj + n] = ani_f32_host(
+                tile, ref_db.norms[mi : mi + m], query_db.norms[nj : nj + n],
+                self.ksize,
+            )
+        if symmetric:
+            ii, jj = np.triu_indices(M, k=1)
+        else:
+            ii, jj = np.meshgrid(np.arange(M), np.arange(N), indexing="ij")
+            ii, jj = ii.ravel(), jj.ravel()
+        return ii.astype(np.int64), jj.astype(np.int64), ani_full[ii, jj]
+
+    def _query_tiles(self, query_db: ShardedDB, M: int, symmetric: bool,
+                     ref_offset: int, query_offset: int):
+        """Yield (nj, query tile on the device, [(bi, mi), ...]): query
+        tiles outer, so each crosses to the device once, and the row tiles
+        that hold an i < j pair (global indices) when symmetric."""
         tm, tn = self.tile_m, self.tile_n
-        for nj in range(0, q_hv.shape[0], tn):
-            for mi in range(0, r_hv.shape[0], tm):
-                if symmetric and _tile_below_diagonal(mi, nj, tn):
-                    continue
-                yield (mi, nj, r_hv[mi : mi + tm], r_norm[mi : mi + tm],
-                       q_hv[nj : nj + tn], q_norm[nj : nj + tn])
+        for nj in range(0, query_db.hvs.shape[0], tn):
+            rows = [
+                (bi, mi) for bi, mi in enumerate(range(0, M, tm))
+                if not (symmetric and _tile_below_diagonal(
+                    mi + ref_offset, nj + query_offset, tn))
+            ]
+            yield nj, self._upload(query_db.hvs[nj : nj + tn]), rows
 
     def ani_pairs_thresholded(
         self, ref_db: ShardedDB, query_db: ShardedDB, symmetric: bool,
-        threshold: float,
+        threshold: float, ref_blocks: List | None = None,
+        ref_offset: int = 0, query_offset: int = 0,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
         """Pairs with ANI >= threshold, filtered on the device.
 
@@ -119,69 +236,126 @@ class Comparator:
         leave the device, with their exact dots; the host chain recomputes
         and re-filters them. Returns (ref_idx, query_idx, ani, n_total) in
         reference enumeration order (i, then j; j > i when symmetric).
+        ref_blocks: device-resident blocks from preload_ref. ref_offset /
+        query_offset: global row / column of this rectangle (a pod's part);
+        the symmetric filter and the tile skip use global indices, the
+        returned indices stay local, and n_total is only meaningful at zero
+        offsets.
         """
+        M = ref_db.hvs.shape[0]
+        if ref_blocks is None:
+            ref_blocks = self.preload_ref(ref_db)
+        mode = self.dot_mode(ref_db.hvs, query_db.hvs)
         out_i: List[np.ndarray] = []
         out_j: List[np.ndarray] = []
         out_a: List[np.ndarray] = []
-        for mi, nj, r, nr, q, nq in self._tiles(ref_db, query_db, symmetric):
-            idx, dot = dot_threshold_compact(
-                r, nr, q, nq, threshold, self.ksize
-            )
-            idx, dot = idx.cpu().numpy(), dot.cpu().numpy()
-            ii = mi + idx // q.shape[0]
-            jj = nj + idx % q.shape[0]
-            ani = _ani_host_pairs(
-                dot, ref_db.norms[ii], query_db.norms[jj], self.ksize
-            )
-            keep = ani >= np.float32(threshold)
-            out_i.append(ii[keep])
-            out_j.append(jj[keep])
-            out_a.append(ani[keep])
-        return _finish_pairs(out_i, out_j, out_a, ref_db, query_db, symmetric)
+        for nj, q, rows in self._query_tiles(query_db, M, symmetric,
+                                             ref_offset, query_offset):
+            n = q.shape[0]
+            nq = self._upload(query_db.norms[nj : nj + n])
+            for bi, mi in rows:
+                r, nr = ref_blocks[bi]
+                idx, dot = dot_threshold_compact(
+                    r, nr, q, nq, threshold, self.ksize, mode
+                )
+                idx, dot = idx.cpu().numpy(), dot.cpu().numpy()
+                ii, jj = mi + idx // n, nj + idx % n
+                ani = ani_host_pairs(
+                    dot, ref_db.norms[ii], query_db.norms[jj], self.ksize
+                )
+                keep = ani >= np.float32(threshold)
+                out_i.append(ii[keep])
+                out_j.append(jj[keep])
+                out_a.append(ani[keep])
+        return _finish_pairs(out_i, out_j, out_a, M, query_db.hvs.shape[0],
+                             symmetric, ref_offset, query_offset)
 
     def ani_pairs_streamed(
         self, ref_db: ShardedDB, query_db: ShardedDB, symmetric: bool,
-        threshold: float,
+        threshold: float, ref_offset: int = 0, query_offset: int = 0,
+        ref_blocks: List | None = None,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
         """Pairs with ANI >= threshold, filtered on the host per tile.
 
         For thresholds below the device filter's regime: each full dot tile
         comes to the host, and only its survivors are kept, so memory is
-        O(survivors). Same returns as ani_pairs_thresholded.
+        O(survivors). ref_blocks from preload_rows; same returns and offset
+        semantics as ani_pairs_thresholded.
         """
+        M = ref_db.hvs.shape[0]
+        if ref_blocks is None:
+            ref_blocks = self.preload_rows(ref_db.hvs)
+        mode = self.dot_mode(ref_db.hvs, query_db.hvs)
         out_i: List[np.ndarray] = []
         out_j: List[np.ndarray] = []
         out_a: List[np.ndarray] = []
-        for mi, nj, r, _, q, _ in self._tiles(ref_db, query_db, symmetric):
-            tile = dot_i16_exact(r, q).cpu().numpy()
-            ani = ani_f32_host(
-                tile,
-                ref_db.norms[mi : mi + tile.shape[0]],
-                query_db.norms[nj : nj + tile.shape[1]],
-                self.ksize,
-            )
-            ri, qi = np.nonzero(ani >= np.float32(threshold))
-            out_i.append((mi + ri).astype(np.int64))
-            out_j.append((nj + qi).astype(np.int64))
-            out_a.append(ani[ri, qi])
-        return _finish_pairs(out_i, out_j, out_a, ref_db, query_db, symmetric)
+        for nj, q, rows in self._query_tiles(query_db, M, symmetric,
+                                             ref_offset, query_offset):
+            for bi, mi in rows:
+                tile = dot_i16_any(ref_blocks[bi], q, mode).cpu().numpy()
+                ani = ani_f32_host(
+                    tile,
+                    ref_db.norms[mi : mi + tile.shape[0]],
+                    query_db.norms[nj : nj + tile.shape[1]],
+                    self.ksize,
+                )
+                ri, qi = np.nonzero(ani >= np.float32(threshold))
+                out_i.append((mi + ri).astype(np.int64))
+                out_j.append((nj + qi).astype(np.int64))
+                out_a.append(ani[ri, qi])
+        return _finish_pairs(out_i, out_j, out_a, M, query_db.hvs.shape[0],
+                             symmetric, ref_offset, query_offset)
 
 
-def _finish_pairs(out_i, out_j, out_a, ref_db, query_db, symmetric):
-    """Concatenate tile survivors, keep j > i when symmetric, and restore
-    the reference enumeration order (i, then j)."""
+def _finish_pairs(out_i, out_j, out_a, M: int, N: int, symmetric: bool,
+                  ref_offset: int, query_offset: int):
+    """Concatenate tile survivors, keep global j > i when symmetric, and
+    restore the reference enumeration order (i, then j)."""
     ii = np.concatenate(out_i).astype(np.int64) if out_i else np.zeros(0, np.int64)
     jj = np.concatenate(out_j).astype(np.int64) if out_j else np.zeros(0, np.int64)
     aa = np.concatenate(out_a) if out_a else np.zeros(0, np.float32)
-    M, N = len(ref_db.names), len(query_db.names)
     if symmetric:
-        keep = ii < jj
+        keep = (ii + ref_offset) < (jj + query_offset)
         ii, jj, aa = ii[keep], jj[keep], aa[keep]
         n_total = M * (M - 1) // 2
     else:
         n_total = M * N
     order = np.lexsort((jj, ii))
     return ii[order], jj[order], aa[order], n_total
+
+
+def format_ani_report(
+    ref_names: List[str],
+    query_names: List[str],
+    ref_idx: np.ndarray,
+    query_idx: np.ndarray,
+    ani: np.ndarray,
+    threshold: float,
+    top_k: int = 0,
+) -> Tuple[str, int]:
+    """Reference-exact TSV: sort desc (stable ties reversed), filter, format.
+
+    Mirrors reference:src/utils.rs:260-290: indices stable-sorted ascending
+    by ANI then reversed, rows emitted while ani >= threshold, '%.3f'.
+    Returns (tsv_string, n_reported). top_k > 0 additionally caps the rows.
+    NaN ANIs are dropped up front (the reference's sort panics on them).
+    """
+    ani = np.asarray(ani)
+    kept = np.flatnonzero(~np.isnan(ani))
+    order = kept[np.argsort(ani[kept], kind="stable")[::-1]]
+    lines = []
+    thr = np.float32(threshold)
+    for idx in order:
+        if not ani[idx] >= thr:
+            break
+        lines.append(
+            f"{ref_names[int(ref_idx[idx])]}\t"
+            f"{query_names[int(query_idx[idx])]}\t"
+            f"{ani[idx]:.3f}\n"
+        )
+        if top_k and len(lines) >= top_k:
+            break
+    return "".join(lines), len(lines)
 
 
 def write_ani_report(
@@ -192,24 +366,27 @@ def write_ani_report(
     query_idx: np.ndarray,
     ani: np.ndarray,
     threshold: float,
+    top_k: int = 0,
+    chunk_rows: int = 1 << 19,
 ) -> int:
     """Streamed reference-exact TSV writer; returns n_reported.
 
     Rows are stable-sorted by ANI ascending then reversed, cut at the
-    threshold and printed '%.3f' (reference:src/utils.rs:260-290), in
-    chunks of _TSV_CHUNK_ROWS to bound the formatted strings' memory.
+    threshold (and at top_k rows when given) and printed '%.3f'
+    (reference:src/utils.rs:260-290), in chunks of chunk_rows to bound the
+    formatted strings' memory. Byte-identical to format_ani_report.
     """
     ani = np.asarray(ani)
     # filter before sorting: NaN fails >= and would otherwise sort first in
     # descending order; a stable sort of a subsequence keeps tie order
     kept = np.flatnonzero(ani >= np.float32(threshold))
     order = kept[np.argsort(ani[kept], kind="stable")[::-1]]
-    n_keep = kept.size
+    n_keep = min(kept.size, top_k) if top_k else kept.size
     names_r = np.char.add(np.asarray(ref_names, dtype=np.str_), "\t")
     names_q = np.char.add(np.asarray(query_names, dtype=np.str_), "\t")
     with open(out_path, "w") as fh:
-        for lo in range(0, n_keep, _TSV_CHUNK_ROWS):
-            sel = order[lo : lo + _TSV_CHUNK_ROWS]
+        for lo in range(0, n_keep, chunk_rows):
+            sel = order[lo : min(lo + chunk_rows, n_keep)]
             fh.write(_tsv_rows(
                 names_r[ref_idx[sel]], names_q[query_idx[sel]], ani[sel]
             ))
@@ -221,11 +398,64 @@ def _tsv_rows(ref_tab: np.ndarray, q_tab: np.ndarray,
     """Vectorized `ref\\tquery\\t%.3f\\n` assembly for gathered row arrays.
 
     np.char.mod routes the float32 through the same C '%.3f' double path
-    as an f-string, so bytes equal the scalar formatter's."""
+    as an f-string, so bytes equal the scalar formatter's. The one home of
+    the row format for `dist` and `search`."""
     return "".join(np.char.add(
         np.char.add(ref_tab, q_tab),
         np.char.add(np.char.mod("%.3f", vals), "\n"),
     ).tolist())
+
+
+def write_search_report(
+    out_path,
+    ref_names: List[str],
+    query_names: List[str],
+    ref_idx: np.ndarray,
+    ani: np.ndarray,
+    threshold: float,
+    chunk_queries: int = 4096,
+) -> int:
+    """Streamed search TSV: per-query top-k blocks, queries in input order.
+
+    ref_idx/ani are [N_queries, k_top]. Within each query the rows are
+    stable-sorted descending by ANI with ties reversed and cut at the
+    threshold: format_ani_report applied per query (reference:src/utils.rs:
+    262-286), assembled vectorized in chunks of queries. NaN ANIs (empty
+    slots) never emit. Returns n_reported.
+    """
+    a = np.ascontiguousarray(np.asarray(ani, dtype=np.float32))
+    idx = np.asarray(ref_idx)
+    if a.ndim != 2:
+        raise ValueError("ani must be [n_queries, k_top]")
+    N = a.shape[0]
+    # ascending stable argsort reversed = descending with ties reversed;
+    # NaN sorts last ascending -> first reversed, and the >= threshold mask
+    # drops it, so survivors form the subsequence format_ani_report emits
+    ordc = np.argsort(a, axis=1, kind="stable")[:, ::-1]
+    a_sorted = np.take_along_axis(a, ordc, axis=1)
+    keep = a_sorted >= np.float32(threshold)
+    names_r = np.char.add(np.asarray(ref_names, dtype=np.str_), "\t")
+    names_q = np.char.add(np.asarray(query_names, dtype=np.str_), "\t")
+    idx_sorted = np.take_along_axis(idx, ordc, axis=1)
+    n = 0
+    with open(out_path, "w") as fh:
+        for lo in range(0, N, chunk_queries):
+            hi = min(lo + chunk_queries, N)
+            qi, ci = np.nonzero(keep[lo:hi])
+            if qi.size == 0:
+                continue
+            fh.write(_tsv_rows(
+                names_r[idx_sorted[lo:hi][qi, ci]], names_q[qi + lo],
+                a_sorted[lo:hi][qi, ci],
+            ))
+            n += int(qi.size)
+    return n
+
+
+def count_search_hits(ani: np.ndarray, threshold: float) -> int:
+    """Rows write_search_report would emit (for ranks that do not write)."""
+    a = np.asarray(ani, dtype=np.float32)
+    return int(np.sum(a >= np.float32(threshold)))
 
 
 def report_sparsity(n_reported: int, n_total: int, threshold: float) -> None:

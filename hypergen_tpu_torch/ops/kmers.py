@@ -26,12 +26,7 @@ from hypergen_tpu_torch.ops.hashes import mm_hash64, t1ha2_atonce_words
 from hypergen_tpu_torch.ops.u64 import lt, lt_const
 
 INVALID_CODE = 4  # the host codes non-ACGT bases as 4
-
-
-def _ascii_from_code(c: torch.Tensor) -> torch.Tensor:
-    """2-bit code -> ASCII base as int64 (A=65 C=67 G=71 T=84)."""
-    c = c.to(torch.int64)
-    return 65 + (c << 1) + ((c >> 1) << 1) + (c == 3).to(torch.int64) * 11
+_ASCII = (65, 67, 71, 84)  # code 0..3 -> A C G T
 
 
 def canonical_kmer_words(
@@ -43,6 +38,11 @@ def canonical_kmer_words(
     (words, key, valid): ceil(k/8) int64 [..., P] words of little-endian
     ASCII bytes with the tail zero-padded, the canonical key int64
     [..., P], and valid bool [..., P].
+
+    The per-base arrays (2-bit code, complement, ASCII) are built once over
+    L and each window reads them as shifted slices, with the keys and words
+    built in place: the arrays are [batch, chunks, C] large, so each pass
+    avoided is a pass over memory.
     """
     if not 1 <= ksize <= 32:
         raise ValueError("ksize must be in [1, 32]")
@@ -50,30 +50,37 @@ def canonical_kmer_words(
     P = codes.shape[-1] - ksize + 1
     if P < 1:
         raise ValueError(f"chunk too short: L={codes.shape[-1]} < k={ksize}")
-
-    def win(j: int) -> torch.Tensor:
-        return codes[..., j : j + P]
-
-    valid = torch.ones(codes.shape[:-1] + (P,), dtype=torch.bool,
-                       device=codes.device)
+    c = codes & 3
+    comp = 3 - c
+    # a window is valid when no code in it is invalid: a prefix count of
+    # invalid codes, differenced over k
+    inv = torch.cumsum(torch.nn.functional.pad(
+        (codes >= INVALID_CODE).to(torch.int32), (1, 0)), -1,
+        dtype=torch.int32)
+    valid = inv[..., ksize:] == inv[..., :P]
     fwd = torch.zeros(valid.shape, dtype=torch.int64, device=codes.device)
     rc = torch.zeros_like(fwd)
     for j in range(ksize):
-        valid &= win(j) < INVALID_CODE
-        fwd = (fwd << 2) | (win(j) & 3)
-        rc = (rc << 2) | (3 - (win(ksize - 1 - j) & 3))
+        fwd <<= 2
+        fwd |= c[..., j : j + P]
+        rc <<= 2
+        rc |= comp[..., ksize - 1 - j : ksize - 1 - j + P]
     if canonical:
         is_rc = lt(rc, fwd)
         key = torch.where(is_rc, rc, fwd)
     else:
         key = fwd
 
+    ascii_ = torch.tensor(_ASCII, dtype=torch.int64, device=codes.device)
+    fwd_ascii = ascii_[c]
+    rc_ascii = ascii_[comp] if canonical else None
     words = [torch.zeros_like(fwd) for _ in range((ksize + 7) // 8)]
     for j in range(ksize):
-        cb = win(j) & 3
+        b = fwd_ascii[..., j : j + P]
         if canonical:
-            cb = torch.where(is_rc, 3 - (win(ksize - 1 - j) & 3), cb)
-        words[j // 8] |= _ascii_from_code(cb) << (8 * (j % 8))
+            r = ksize - 1 - j
+            b = torch.where(is_rc, rc_ascii[..., r : r + P], b)
+        words[j // 8] |= b << (8 * (j % 8))
     return words, key, valid
 
 

@@ -1,1 +1,1 @@
-"""Sequence parallelism: one huge genome's chunks over a list of devices."""
+"""Sequence parallelism over devices, and top-k database search."""

@@ -1,0 +1,268 @@
+"""Database search: per-shard top-k ANI and a merge, in one process.
+
+Counterpart of the single-process part of ``hypergen_tpu.parallel.search``.
+The JAX package shards the DB over a (db, q) mesh with ``shard_map`` and
+merges the per-shard candidates with ``all_gather``. Here one process walks
+a list of ``torch.device``s (repeats allowed, as ``parallel.seqpar`` takes
+them), and the collective becomes copies to ``devices[0]``:
+
+  DB rows padded with zero HVs to a multiple of the device count, one
+    contiguous range of rows per device
+    -> on each device: exact dots, the device float32 ANI, a local top-k
+       (-inf slots when a shard has fewer than k rows)
+    -> the candidates copied to devices[0], shard-major, and merged
+
+Ranking follows ``jax.lax.top_k``: ANI descending, and among equal values
+the lower DB row first (``ops.ani.topk_desc``); the padded rows are ranked
+as the JAX package ranks them and then masked, so the winners, the -inf
+slots included, are the JAX package's. The multi-process (pod) paths are
+not in this module.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from hypergen_tpu_torch.ops.ani import ani_topk, resolve_mode, topk_desc
+
+log = logging.getLogger("hypergen")
+
+# per-device ANI-matrix budget above which DB search streams row tiles
+# instead of materializing the full (M/ndb x N) matrix at once
+PAIRS_PER_DEVICE_TILE_LIMIT = 1 << 28
+
+
+def default_devices(name: str) -> List[torch.device]:
+    """Every CUDA card for ``"cuda"``, else ``[torch.device(name)]``."""
+    if name != "cuda":
+        return [torch.device(name)]
+    n = torch.cuda.device_count()
+    if n == 0:
+        raise RuntimeError("search: no CUDA device (pass devices=['cpu'])")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _padded_rows(hv: np.ndarray, lo: int, rows: int,
+                 device) -> torch.Tensor:
+    """Rows [lo, lo + rows) of hv on ``device``, zero past hv's end (the
+    JAX package's zero-HV padding)."""
+    t = torch.from_numpy(np.ascontiguousarray(hv[lo : lo + rows])).to(device)
+    if t.shape[0] == rows:
+        return t
+    return torch.cat([t, t.new_zeros((rows - t.shape[0],) + t.shape[1:])])
+
+
+def _on_devices(devices, *arrays):
+    """{device: tuple of tensors} with each array uploaded once a device."""
+    return {d: tuple(torch.from_numpy(np.ascontiguousarray(a)).to(d)
+                     for a in arrays) for d in set(devices)}
+
+
+def _block_topk(devices, db_hv, db_norm, lo: int, rows: int, q_on,
+                ksize: int, k_top: int, mode):
+    """Top-k of rows [lo, lo + rows) of the DB (zero-padded past its end)
+    split evenly over ``devices``; the sharded program of the JAX package
+    (``_local_search``). Returns numpy (ani, idx local to the block, dot),
+    each [N, k_top]."""
+    rp = rows // len(devices)
+    home = devices[0]
+    vs, ids, ds = [], [], []
+    for di, dev in enumerate(devices):
+        q, qn = q_on[dev]
+        hv = _padded_rows(db_hv, lo + di * rp, rp, dev)
+        norm = _padded_rows(db_norm, lo + di * rp, rp, dev)
+        v, i, d = ani_topk(hv, norm, q, qn, ksize, min(k_top, rp), mode)
+        del hv
+        pad = k_top - v.shape[1]
+        if pad:  # shard smaller than k: -inf slots, local index 0
+            v = torch.nn.functional.pad(v, (0, pad), value=float("-inf"))
+            i = torch.nn.functional.pad(i, (0, pad))
+            d = torch.nn.functional.pad(d, (0, pad))
+        vs.append(v.to(home))
+        ids.append((i + di * rp).to(home))
+        ds.append(d.to(home))
+    mv, mp = topk_desc(torch.cat(vs, dim=1), k_top)
+    mi = torch.gather(torch.cat(ids, dim=1), 1, mp)
+    md = torch.gather(torch.cat(ds, dim=1), 1, mp)
+    return mv.cpu().numpy(), mi.cpu().numpy(), md.cpu().numpy()
+
+
+def _mask_padding(ani, idx, dot, M: int, Mp: int):
+    """Padded DB rows (index >= M, only when M < Mp) -> (-inf, 0, 0)."""
+    if Mp != M:
+        bad = idx >= M
+        ani = np.where(bad, -np.inf, ani).astype(np.float32)
+        idx = np.where(bad, 0, idx).astype(np.int32)
+        dot = np.where(bad, 0, dot).astype(np.int32)
+    return ani, idx, dot
+
+
+def sharded_topk_search(
+    devices: Sequence, db_hv: np.ndarray, db_norm: np.ndarray,
+    q_hv: np.ndarray, q_norm: np.ndarray, ksize: int, k_top: int, mode=None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Top-k ANI search of queries against the DB split over ``devices``.
+
+    Pads M to a multiple of len(devices) with zero HVs, masked out of the
+    results. Returns (ani [N, k_top] float32 device ANI, idx [N, k_top]
+    int32 global DB rows, dot [N, k_top] exact int32 dots of the winners,
+    which the TSV feeds through the host float chain).
+    """
+    devs = [torch.device(d) for d in devices]
+    mode = resolve_mode(mode, devs[0], db_hv, q_hv)
+    M, ndb = db_hv.shape[0], len(devs)
+    Mp = -(-M // ndb) * ndb
+    q_on = _on_devices(devs, q_hv, q_norm)
+    ani, idx, dot = _block_topk(devs, db_hv, db_norm, 0, Mp, q_on, ksize,
+                                k_top, mode)
+    return _mask_padding(ani, idx, dot, M, Mp)
+
+
+def local_topk_search_tiled(
+    db_hv: np.ndarray, db_norm: np.ndarray, q_hv: np.ndarray,
+    q_norm: np.ndarray, ksize: int, k_top: int, tile_m: int = 8192,
+    mode=None, device="cuda",
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Top-k on one device over a DB larger than one ANI matrix.
+
+    Streams DB row tiles (the last one zero-padded to tile_m) through a
+    running top-k on the device, the running candidates ahead of each new
+    tile's, so peak memory is O(tile_m x N) instead of O(M x N).
+    """
+    device = torch.device(device)
+    mode = resolve_mode(mode, device, db_hv, q_hv)
+    tile_m = max(tile_m, k_top)  # each tile must give k_top candidates
+    M, N = db_hv.shape[0], q_hv.shape[0]
+    (q, qn), = _on_devices([device], q_hv, q_norm).values()
+    run_v = torch.full((N, k_top), float("-inf"), device=device)
+    run_i = torch.zeros((N, k_top), dtype=torch.int32, device=device)
+    run_d = torch.zeros((N, k_top), dtype=torch.int32, device=device)
+    for mi in range(0, M, tile_m):
+        v, i, d = ani_topk(
+            _padded_rows(db_hv, mi, tile_m, device),
+            _padded_rows(db_norm, mi, tile_m, device),
+            q, qn, ksize, k_top, mode,
+        )
+        run_v, mp = topk_desc(torch.cat([run_v, v], dim=1), k_top)
+        run_i = torch.gather(torch.cat([run_i, i + mi], dim=1), 1, mp)
+        run_d = torch.gather(torch.cat([run_d, d], dim=1), 1, mp)
+    return _mask_padding(*(t.cpu().numpy() for t in (run_v, run_i, run_d)),
+                         M, -(-M // tile_m) * tile_m)
+
+
+def sharded_topk_search_tiled(
+    devices: Sequence, db_hv: np.ndarray, db_norm: np.ndarray,
+    q_hv: np.ndarray, q_norm: np.ndarray, ksize: int, k_top: int,
+    tile_m: int, mode=None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Top-k over several devices for a DB too large for one sharded pass.
+
+    Streams DB row tiles of tile_m rows (rounded up to a multiple of the
+    device count, the last zero-padded), each through the sharded top-k,
+    and merges each tile's candidates after the running ones on the host
+    (a stable sort), bounding each device's memory at O(tile_m/ndb x N).
+    Queries cross to each device once; the mode resolves once over the
+    whole DB.
+    """
+    devs = [torch.device(d) for d in devices]
+    mode = resolve_mode(mode, devs[0], db_hv, q_hv)
+    ndb = len(devs)
+    M, N = db_hv.shape[0], q_hv.shape[0]
+    tile_m = -(-max(tile_m, k_top) // ndb) * ndb
+    q_on = _on_devices(devs, q_hv, q_norm)
+    run_v = np.full((N, k_top), -np.inf, dtype=np.float32)
+    run_i = np.zeros((N, k_top), dtype=np.int32)
+    run_d = np.zeros((N, k_top), dtype=np.int32)
+    for mi in range(0, M, tile_m):
+        v, i, d = _mask_padding(
+            *_block_topk(devs, db_hv, db_norm, mi, tile_m, q_on, ksize,
+                         k_top, mode),
+            min(tile_m, M - mi), tile_m,
+        )
+        cv = np.concatenate([run_v, v], axis=1)
+        ci = np.concatenate([run_i, i + mi], axis=1)
+        cd = np.concatenate([run_d, d], axis=1)
+        pos = np.argsort(-cv, axis=1, kind="stable")[:, :k_top]
+        run_v = np.take_along_axis(cv, pos, axis=1)
+        run_i = np.take_along_axis(ci, pos, axis=1).astype(np.int32)
+        run_d = np.take_along_axis(cd, pos, axis=1).astype(np.int32)
+    return run_v, run_i, run_d
+
+
+def topk_search(
+    devices: Sequence, db_hv: np.ndarray, db_norm: np.ndarray,
+    q_hv: np.ndarray, q_norm: np.ndarray, ksize: int, k_top: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The `search` route, by pairs per device: one sharded pass while a
+    device's share of the ANI matrix stays within
+    PAIRS_PER_DEVICE_TILE_LIMIT, else row tiles sized from that budget (a
+    running top-k on the device for one device, the sharded tiles for
+    several)."""
+    M, N = db_hv.shape[0], q_hv.shape[0]
+    ndev = len(devices)
+    if -(-M // ndev) * N <= PAIRS_PER_DEVICE_TILE_LIMIT:
+        return sharded_topk_search(devices, db_hv, db_norm, q_hv, q_norm,
+                                   ksize, k_top)
+    if ndev == 1:
+        return local_topk_search_tiled(
+            db_hv, db_norm, q_hv, q_norm, ksize, k_top,
+            tile_m=max(k_top, 256, PAIRS_PER_DEVICE_TILE_LIMIT // max(N, 1)),
+            device=devices[0],
+        )
+    return sharded_topk_search_tiled(
+        devices, db_hv, db_norm, q_hv, q_norm, ksize, k_top,
+        tile_m=max(8192, PAIRS_PER_DEVICE_TILE_LIMIT // max(N, 1) * ndev),
+    )
+
+
+def write_search_tsv(out, ref_names, ref_norms: np.ndarray, query_db,
+                     ani: np.ndarray, idx: np.ndarray, dot: np.ndarray,
+                     threshold: float) -> int:
+    """The search TSV from top-k winners; returns the rows written.
+
+    Each winner's ANI is recomputed from its exact dot by the host float
+    chain, so the rows print as `dist` rows do; -inf slots (short shards)
+    become NaN, which the writer drops."""
+    from hypergen_tpu_torch.models.comparator import (
+        ani_host_pairs, write_search_report,
+    )
+
+    N, k_top = ani.shape
+    exact = ani_host_pairs(
+        dot.ravel().astype(np.int32),
+        np.asarray(ref_norms)[idx.ravel()],
+        np.repeat(np.asarray(query_db.norms), k_top),
+        query_db.ksize,
+    ).reshape(N, k_top)
+    exact = np.where(np.isfinite(ani), exact, np.nan)
+    return write_search_report(out, ref_names, query_db.names, idx, exact,
+                               threshold)
+
+
+def run_search_cli(args, load_db, devices: Sequence) -> None:
+    """CLI glue for the `search` subcommand on one process.
+
+    Output rows are byte-consistent with `dist`: the `ref\\tquery\\tani`
+    columns (reference:src/utils.rs:272-286), with each winner's ANI from
+    the host chain on its exact dot (the device float chain only ranks)."""
+    t0 = time.monotonic()
+    query_db = load_db(args.path_q)
+    ref_db = load_db(args.path_r)
+    if ref_db.ksize != query_db.ksize or ref_db.hv_d != query_db.hv_d:
+        raise SystemExit("ref/query sketch parameter mismatch")
+    M, N = ref_db.hvs.shape[0], query_db.hvs.shape[0]
+    k_top = min(args.top_k, M)
+    ani, idx, dot = topk_search(devices, ref_db.hvs, ref_db.norms,
+                                query_db.hvs, query_db.norms,
+                                ref_db.ksize, k_top)
+    n_hits = write_search_tsv(args.out, ref_db.names, ref_db.norms, query_db,
+                              ani, idx, dot, args.ani_th)
+    log.info(
+        "Searched %d queries against %d refs (top-%d) in %.3fs -> %d hits",
+        N, M, k_top, time.monotonic() - t0, n_hits,
+    )

@@ -1,5 +1,7 @@
 """Exact dot and the dist pair paths of the PyTorch port against the JAX
-package's. Tolerance: equal int32 dots and equal (i, j, float32 ANI) rows.
+package's. Tolerance: equal int32 dots, indices and (i, j, float32 host
+ANI) rows; the device float32 ANI of a top-k within 1e-4 ANI%%, because
+XLA's float chain (its own log) and PyTorch's differ in the last bits.
 """
 
 import dataclasses
@@ -11,9 +13,12 @@ import torch
 
 from hypergen_tpu.io import sketch_db as jax_sketch_db
 from hypergen_tpu.models.comparator import Comparator as JaxComparator
+from hypergen_tpu.ops import ani as jax_ani
+from hypergen_tpu.parallel.search import _resolve_mxu
 from hypergen_tpu_torch.io.sketch_db import ShardedDB
 from hypergen_tpu.ops.ani import dot_i16_exact as jax_dot
 from hypergen_tpu_torch.models.comparator import Comparator, db_to_tensors
+from hypergen_tpu_torch.ops import ani as torch_ani
 from hypergen_tpu_torch.ops.ani import dot_i16_exact
 
 
@@ -83,3 +88,208 @@ def test_db_to_tensors_keeps_bits():
     assert hvs.dtype == torch.int16 and norms.dtype == torch.int32
     np.testing.assert_array_equal(hvs.numpy(), db.hvs)
     np.testing.assert_array_equal(norms.numpy(), db.norms)
+
+
+def _extreme_pair(seed, m, n, d, bound):
+    """int16 r [m, d], q [n, d] uniform in [-bound, bound], with rows of
+    the extremes: -32768, 32767, +-6175 and +-6176 where the bound allows,
+    so that the products and the combines wrap int32."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (-32768, 32767) if bound is None else (-bound, bound)
+    r = rng.integers(lo, hi + 1, size=(m, d)).astype(np.int16)
+    q = rng.integers(lo, hi + 1, size=(n, d)).astype(np.int16)
+    extremes = [v for v in (-32768, 32767, 6175, -6175, 6176, -6176)
+                if lo <= v <= hi]
+    for i, v in enumerate(extremes):
+        r[i % m] = v
+        q[(i + 1) % n] = v
+        r[(i + 2) % m, ::2] = -v if -v <= hi else v
+    return r, q
+
+
+def _jx(a):
+    return jnp.asarray(a)
+
+
+def _t(a):
+    return torch.from_numpy(a)
+
+
+# (mode, value bound): "small" only within SMALL_SPLIT_MAX
+DOT_CASES = [("small", 6175), (True, 6175), (True, None), (False, None)]
+
+
+@pytest.mark.parametrize("d", [4096, 37, 8])
+@pytest.mark.parametrize("mode,bound", DOT_CASES)
+def test_int8_modes_match_jax(mode, bound, d):
+    """Each mode of dot_i16_exact equals the JAX package's use_mxu of the
+    same name bit for bit, at the int16 and split extremes, and at depths
+    that are and are not multiples of 8."""
+    r, q = _extreme_pair(d + (bound or 0), 21, 9, d, bound)
+    got = dot_i16_exact(_t(r), _t(q), mode)
+    assert got.dtype == torch.int32
+    want = np.asarray(jax_dot(_jx(r), _jx(q), use_mxu=mode))
+    np.testing.assert_array_equal(got.numpy(), want)
+    exact = (r.astype(np.int64) @ q.astype(np.int64).T).astype(np.int32)
+    np.testing.assert_array_equal(got.numpy(), exact)
+
+
+@pytest.mark.parametrize("d", [4096, 37])
+def test_presplit_forms_match_jax(d):
+    """The presplit planes and row correction, the presplit dots, and
+    dot_i16_any on a SmallSplit with an over-bound query (the rebuild of
+    the exact rows) in every mode, against the JAX package."""
+    r, _ = _extreme_pair(1, 19, 7, d, 6175)
+    _, q_small = _extreme_pair(2, 19, 7, d, 6175)
+    _, q_wide = _extreme_pair(3, 19, 7, d, None)
+    jsplit = jax_ani.presplit_rows(_jx(r))
+    tsplit = torch_ani.presplit_rows(_t(r))
+    for a, b in zip(tsplit, jsplit):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    jsmall = jax_ani.presplit_rows_small(_jx(r))
+    tsmall = torch_ani.presplit_rows_small(_t(r))
+    for a, b in zip(tsmall, jsmall):
+        assert a.dtype == torch.int8
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for q in (q_small, q_wide):
+        np.testing.assert_array_equal(
+            torch_ani.dot_i16_presplit(*tsplit, _t(q)).numpy(),
+            np.asarray(jax_ani.dot_i16_presplit(*jsplit, _jx(q))))
+    np.testing.assert_array_equal(
+        torch_ani.dot_i16_presplit_small(tsmall, _t(q_small)).numpy(),
+        np.asarray(jax_ani.dot_i16_presplit_small(jsmall, _jx(q_small))))
+    for q, mode in ((q_small, "small"), (q_wide, True), (q_wide, False)):
+        got = torch_ani.dot_i16_any(tsmall, _t(q), mode)
+        want = jax_ani.dot_i16_any(jsmall, _jx(q), use_mxu=mode)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        got = torch_ani.dot_i16_any(tsplit, _t(q), mode)
+        want = jax_ani.dot_i16_any(jsplit, _jx(q), use_mxu=mode)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("top", [6175, 6176, 32767])
+def test_resolve_mode_matches_jax(top):
+    """None resolves to the int8 split on a CUDA device (the 3-product one
+    when every value fits) and to the direct dot on the CPU; True upgrades
+    as the JAX package's _resolve_mxu."""
+    a = np.zeros((3, 8), np.int16)
+    b = np.zeros((2, 8), np.int16)
+    b[1, 3] = -top
+    want = _resolve_mxu(True, a, b)
+    assert torch_ani.resolve_mode(None, "cuda", a, b) == want
+    assert torch_ani.resolve_mode(True, "cpu", _t(a), _t(b)) == want
+    assert torch_ani.resolve_mode(None, "cpu", a, b) is False
+    assert torch_ani.resolve_mode("small", "cuda", a) == "small"
+    assert torch_ani.abs_bound(b) == top == torch_ani.abs_bound(_t(b))
+
+
+def test_topk_desc_matches_lax_top_k():
+    """Ties (equal values, -inf, 0, 100) rank the lower position first and
+    the lower positions make the cut, as jax.lax.top_k."""
+    import jax
+
+    rng = np.random.default_rng(5)
+    x = rng.choice(np.array([0.0, 100.0, 97.5, -np.inf, 3.25], np.float32),
+                   size=(6, 40))
+    x[0, :] = 97.5
+    for k in (1, 5, 40):
+        v, p = torch_ani.topk_desc(_t(x), k)
+        jv, jp = jax.lax.top_k(_jx(x), k)
+        np.testing.assert_array_equal(p.numpy(), np.asarray(jp))
+        np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+
+
+def _dup_db(seed, n, hv_d=64, names="g"):
+    """_db with exact copies of rows: equal device ANIs at the k-th place."""
+    db = _db(seed, n, hv_d=hv_d, names=names)
+    db.hvs[3] = db.hvs[1]
+    db.hvs[n - 1] = db.hvs[1]
+    db.hvs[4] = db.hvs[2]
+    db.norms = (db.hvs.astype(np.int64) ** 2).sum(-1).astype(np.int32)
+    return db
+
+
+@pytest.mark.parametrize("mode", ["small", True, False])
+@pytest.mark.parametrize("k", [1, 2, 4, 9])
+def test_ani_topk_matches_jax(mode, k):
+    """Winners (indices, exact dots) equal the JAX package's, duplicated
+    rows at the k-th place included; device ANIs within 1e-4."""
+    ref, qry = _dup_db(1, 9), _dup_db(2, 5, names="q")
+    qry.hvs[0] = ref.hvs[1]
+    qry.norms = (qry.hvs.astype(np.int64) ** 2).sum(-1).astype(np.int32)
+    args = (ref.hvs, ref.norms, qry.hvs, qry.norms)
+    v, i, d = torch_ani.ani_topk(*map(_t, args), 21, k, mode)
+    jv, ji, jd = jax_ani.ani_topk(*map(_jx, args), 21, k, use_mxu=mode)
+    assert i.dtype == d.dtype == torch.int32
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=0, atol=1e-4)
+    assert int(i[0, 0]) == 1 and float(v[0, 0]) == 100.0
+    np.testing.assert_allclose(
+        torch_ani.ani_matrix(*map(_t, args), 21, mode).numpy(),
+        np.asarray(jax_ani.ani_matrix(*map(_jx, args), 21, use_mxu=mode)),
+        rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["small", True, False])
+def test_dot_tiles_and_dense_pairs_match_jax(mode):
+    """dot_tiles over preloaded resident tiles (SmallSplit, 4-way or raw)
+    and ani_pairs, against the JAX Comparator with the same mode."""
+    ref, qry = _db(1, 11), _db(2, 7, names="q")
+    jc = JaxComparator(ksize=21, tile_m=4, tile_n=3, use_mxu=mode)
+    tc = Comparator(ksize=21, device="cpu", tile_m=4, tile_n=3, mode=mode)
+    assert tc.dot_mode(ref.hvs, qry.hvs) == jc.dot_mode(ref.hvs, qry.hvs)
+    blocks = tc.preload_rows(ref.hvs)
+    want = list(jc.dot_tiles(ref.hvs, qry.hvs))
+    for got in (list(tc.dot_tiles(ref.hvs, qry.hvs)),
+                list(tc.dot_tiles(ref.hvs, qry.hvs, r_blocks=blocks))):
+        assert len(got) == len(want)
+        for (mi, nj, a), (wmi, wnj, b) in zip(got, want):
+            assert (mi, nj) == (wmi, wnj)
+            np.testing.assert_array_equal(a, b)
+    for sym, q in ((True, ref), (False, qry)):
+        for a, b in zip(tc.ani_pairs(ref, q, sym),
+                        jc.ani_pairs(_jax_db(ref), _jax_db(q), sym)):
+            np.testing.assert_array_equal(a, b)
+    tc.MAX_DENSE_PAIRS = 10
+    with pytest.raises(ValueError):
+        tc.ani_pairs(ref, qry, False)
+
+
+@pytest.mark.parametrize("mode", ["small", True, False])
+@pytest.mark.parametrize("threshold", [0.0, 90.0])
+def test_pair_paths_offsets_and_blocks_match_jax(mode, threshold):
+    """ani_pairs_thresholded/_streamed with ref_blocks, ref_offset and
+    query_offset (a pod's rectangle of a symmetric dist) against JAX."""
+    full = _db(4, 12)
+    ref = dataclasses.replace(full, names=full.names[5:], hvs=full.hvs[5:],
+                              norms=full.norms[5:])
+    qry = dataclasses.replace(full, names=full.names[2:9], hvs=full.hvs[2:9],
+                              norms=full.norms[2:9])
+    jc = JaxComparator(ksize=21, tile_m=3, tile_n=2, use_mxu=mode)
+    tc = Comparator(ksize=21, device="cpu", tile_m=3, tile_n=2, mode=mode)
+    kw = dict(symmetric=True, threshold=threshold, ref_offset=5,
+              query_offset=2)
+    if threshold >= 50:
+        got = tc.ani_pairs_thresholded(ref, qry, ref_blocks=tc.preload_ref(ref),
+                                       **kw)
+        want = jc.ani_pairs_thresholded(_jax_db(ref), _jax_db(qry), **kw)
+    else:
+        got = tc.ani_pairs_streamed(ref, qry, ref_blocks=tc.preload_rows(
+            ref.hvs), **kw)
+        want = jc.ani_pairs_streamed(_jax_db(ref), _jax_db(qry), **kw)
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(a, b)
+    assert got[0].size > 0
+
+
+def test_splits_match_jax_on_every_int16():
+    """Both splits give the JAX package's int8 planes for all 65,536 int16
+    values (the 3-product split also past its bound, where both wrap)."""
+    x = np.arange(-32768, 32768, dtype=np.int64).astype(np.int16).reshape(
+        256, 256)
+    for tsplit, jsplit in ((torch_ani.split_i16_to_i8, jax_ani.split_i16_to_i8),
+                           (torch_ani._split_small, jax_ani._split_small)):
+        for a, b in zip(tsplit(_t(x)), jsplit(_jx(x))):
+            assert a.dtype == torch.int8
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))

@@ -203,3 +203,115 @@ def test_cuda_k2_k_and_edges(cuda, k):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
         assert a[1].any()
+
+
+def _hv_rows(seed, m, d, dups=True):
+    """int16 HVs bundling +-1 vectors of overlapping windows of one pool
+    (ANIs from 0 to ~99), rows 4 and m - 1 exact copies of row 1, and
+    their wrapping int32 norm^2."""
+    vecs = np.random.default_rng(0).choice(
+        np.array([-1, 1], np.int64), size=(4 * m, d))
+    rng = np.random.default_rng(seed)
+    hv = np.zeros((m, d), np.int64)
+    for i in range(m):
+        lo = int(rng.integers(0, 3 * m))
+        hv[i] = vecs[lo : lo + m][rng.random(m) < 0.9].sum(0)
+    hv = hv.astype(np.int16)
+    if dups:
+        hv[4] = hv[m - 1] = hv[1]
+    return hv, (hv.astype(np.int64) ** 2).sum(-1).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 16, 17, 40])
+def test_cuda_int8_dot_matches_float64(cuda, m):
+    """The int8 dots (4-way, 3-product, and their resident forms) on the
+    card equal the float64 dot wrapped to int32, at -32768, 32767 and
+    +-6175/6176 (the int32 accumulation wraps), for m at and below the 16
+    rows cuBLASLt's int8 product refuses and D, N not multiples of 8."""
+    from hypergen_tpu_torch.ops import ani
+
+    rng = np.random.default_rng(m)
+    for d, n in ((4096, 8), (37, 3), (520, 9)):
+        for mode, lo, hi in (("small", -6175, 6175), (True, -32768, 32767)):
+            r = rng.integers(lo, hi + 1, size=(m, d)).astype(np.int16)
+            q = rng.integers(lo, hi + 1, size=(n, d)).astype(np.int16)
+            r[0], q[0] = hi, hi
+            q[n - 1] = lo
+            if hi > 6175:
+                q[1 % n, ::2] = 6176
+                r[m - 1, 1::2] = -6176
+            rt, qt = torch.from_numpy(r).to(cuda), torch.from_numpy(q).to(cuda)
+            want = ani.dot_i16_exact(rt, qt, False)
+            exact = (r.astype(np.int64) @ q.astype(np.int64).T)
+            np.testing.assert_array_equal(want.cpu().numpy(),
+                                          exact.astype(np.int32))
+            split = (ani.presplit_rows_small(rt) if mode == "small"
+                     else ani.presplit_rows(rt))
+            for got in (ani.dot_i16_exact(rt, qt, mode),
+                        ani.dot_i16_any(split, qt, mode),
+                        ani.dot_i16_exact(rt, qt, None)):
+                assert got.dtype == torch.int32 and got.device == rt.device
+                assert torch.equal(got, want)
+    assert d == 520 and abs(int(exact[0, 0])) > 2**31
+
+
+@pytest.mark.cuda
+def test_cuda_search_and_dist_cli_match_cpu(cuda, tmp_path):
+    """`search` and `dist` through the CLI on the card give the -D cpu
+    bytes, on a .hgdb with duplicated rows (ties at the k-th place) and 37
+    queries, some of them DB rows."""
+    from hypergen_tpu_torch.cli import main
+    from hypergen_tpu_torch.io.sketch_db import ShardedDB, dump_sharded_db
+
+    hv, norm = _hv_rows(1, 300, 512)
+    qhv, qnorm = _hv_rows(2, 37, 512, dups=False)
+    qhv[:3], qnorm[:3] = hv[[1, 2, 250]], norm[[1, 2, 250]]
+
+    def db(names, h, n):
+        return ShardedDB(ksize=21, scaled=1500, canonical=True, seed=123,
+                         hv_d=512, names=names, hvs=h, norms=n)
+
+    dump_sharded_db(db([f"r{i}" for i in range(300)], hv, norm),
+                    tmp_path / "r.hgdb", n_shards=3)
+    dump_sharded_db(db([f"q{i}" for i in range(37)], qhv, qnorm),
+                    tmp_path / "q.hgdb")
+    r, q = str(tmp_path / "r.hgdb"), str(tmp_path / "q.hgdb")
+    runs = [("search", ["--top_k", "5", "-a", "0"]),
+            ("dist", ["-a", "85"]), ("dist", ["-a", "0"])]
+    for i, (cmd, extra) in enumerate(runs):
+        for dev in ("cuda", "cpu"):
+            main([cmd, "-r", r, "-q", q, "-o", str(tmp_path / f"{i}{dev}"),
+                  *extra, "-D", dev])
+        want = (tmp_path / f"{i}cpu").read_bytes()
+        assert want and (tmp_path / f"{i}cuda").read_bytes() == want
+    # the three copies tie at 100: ranked lowest row first, printed with
+    # ties reversed (reference:src/utils.rs:262-269)
+    top = [line.split("\t") for line in
+           (tmp_path / "0cpu").read_text().splitlines()[:3]]
+    assert top == [[r, "q0", "100.000"] for r in ("r299", "r4", "r1")]
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_search_matches_tiled(cuda):
+    """sharded_topk_search over [card] x 3 equals the running top-k over
+    row tiles on the card; the sharded search on the CPU picks the same
+    winners (its float32 ANIs may differ from the card's in the last bit:
+    within 1e-4)."""
+    from hypergen_tpu_torch.parallel.search import (
+        local_topk_search_tiled, sharded_topk_search,
+    )
+
+    hv, norm = _hv_rows(3, 200, 256)
+    qhv, qnorm = _hv_rows(4, 24, 256, dups=False)
+    qhv[0], qnorm[0] = hv[1], norm[1]
+    args = (hv, norm, qhv, qnorm, 21, 7)
+    a = sharded_topk_search([cuda] * 3, *args)
+    b = local_topk_search_tiled(*args, tile_m=64, device=cuda)
+    c = sharded_topk_search(["cpu"] * 3, *args, mode=True)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    for x, z in zip(a[1:], c[1:]):
+        np.testing.assert_array_equal(x, z)
+    np.testing.assert_allclose(a[0], c[0], rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(a[1][0, :3], [1, 4, 199])
