@@ -25,9 +25,14 @@ near copies, made on the card from a seed) through the CLI and through the
 sharded search over [cuda:0] x 4, `dist -a 95` of its first 16,384 rows,
 card-vs-CPU TSVs on a subset, the exact dot's float64 and int8 modes timed
 at 2048 x 2048 x 4096, and `sketch -o .hgdb --shards 4` with `--resume` and
-`hist`, card against CPU. Every phase prints its lines; any failure raises
-and exits non-zero before the last line. The last two lines are the kernel table and
-the result, each one JSON object.
+`hist`, card against CPU. Phase 13 drives the pod paths on phase 12's files
+in child processes, one per card over NCCL (two sharing the one card over
+gloo on a one-card machine): `sketch` with `--resume`, `dist -a 95` and
+`search` (started by torchrun), each held to phase 12's one-process bytes,
+with each process's row range, K1 launches, times and peak memory. Every
+phase prints its lines; any failure raises and exits non-zero before the
+last line. The last two lines are the kernel table and the result, each
+one JSON object.
 """
 
 from __future__ import annotations
@@ -964,12 +969,13 @@ def timed_cli(torch, argv):
     return secs, torch.cuda.max_memory_allocated(0)
 
 
-def database_search(torch, tmp: Path, real) -> dict:
+def database_search(torch, tmp: Path, real, one_proc: dict):
     """Phase 12, the database: `search --top_k 10 -a 80` of 4,096 queries
     against the 131,072-row .hgdb through the CLI (every card) and through
     sharded_topk_search over [cuda:0] x 4, identical TSVs; `dist -a 95` of
     its first 16,384 rows; card-vs-CPU TSV bytes of `search` and `dist` on
-    8,192 rows and 512 queries. Returns the database as loaded."""
+    8,192 rows and 512 queries. Returns the database as loaded; the CLI's
+    wall times go into one_proc."""
     import numpy as np
 
     from hypergen_tpu_torch.io.sketch_db import dump_sharded_db, load_sharded_db
@@ -998,6 +1004,7 @@ def database_search(torch, tmp: Path, real) -> dict:
             "search", "-r", str(tmp / "db.hgdb"), "-q", str(tmp / "q.hgdb"),
             "-o", str(hits_cli), "--top_k", str(TOP_K), "-a", "80",
             "-D", DEVICE])
+        one_proc["search"] = secs
         calls = dict(counts)
         check(calls["_int_mm"] > 0 and calls["matmul"] == 0,
               f"search on the card: calls {calls}, want the int8 products "
@@ -1070,6 +1077,7 @@ def database_search(torch, tmp: Path, real) -> dict:
             "dist", "-r", str(tmp / "derep.hgdb"), "-q",
             str(tmp / "derep.hgdb"), "-o", str(tmp / "derep.tsv"), "-a", "95",
             "-D", DEVICE])
+        one_proc["dist"] = secs
         calls = dict(counts)
         check(calls["_int_mm"] == 36 * 3 and calls["matmul"] == 0,
               f"dist on the card: calls {calls}, want 36 tiles x 3 int8 "
@@ -1194,11 +1202,12 @@ def dot_timings(torch, db) -> None:
             f"extremes")
 
 
-def hgdb_cli(torch, tmp: Path) -> None:
+def hgdb_cli(torch, tmp: Path, one_proc: dict) -> None:
     """Phase 12, the .hgdb CLI: the 16 genomes of phase 5 through `sketch
     -o db.hgdb --shards 4`, then four more (300 kb) through `--resume`, and
     a resume with nothing left, on the card and with -D cpu: every file of
-    the two directories equal, and `hist` of the two equal."""
+    the two directories equal, and `hist` of the two equal. The card's wall
+    times go into one_proc."""
     import contextlib
     import io
 
@@ -1211,6 +1220,7 @@ def hgdb_cli(torch, tmp: Path) -> None:
         hash_packed_rows.launches = 0
         secs = run_cli(["sketch", "-p", str(gdir), "-o",
                         str(tmp / f"{dev}.hgdb"), "--shards", "4", "-D", dev])
+        one_proc.setdefault("sketch", secs)
         phase(12, f"sketch -o {dev}.hgdb --shards 4 of 16 genomes on "
                   f"{dev}: {secs:.3f} s, K1 launches "
                   f"{hash_packed_rows.launches}")
@@ -1224,8 +1234,9 @@ def hgdb_cli(torch, tmp: Path) -> None:
         for again in (False, True):
             d = tmp / f"{dev}.hgdb"
             before = {p.name: p.read_bytes() for p in d.iterdir()}
-            run_cli(["sketch", "-p", str(gdir), "-o", str(d), "--resume",
-                     "-D", dev])
+            secs = run_cli(["sketch", "-p", str(gdir), "-o", str(d),
+                            "--resume", "-D", dev])
+            one_proc.setdefault("resume", secs)
             after = {p.name: p.read_bytes() for p in d.iterdir()}
             check(all(after[n] == b for n, b in before.items()
                       if n.endswith(".npy")), f"{dev}: a shard was rewritten")
@@ -1249,6 +1260,214 @@ def hgdb_cli(torch, tmp: Path) -> None:
               f"untouched), a second resume changed nothing; all "
               f"{len(names)} files of the .hgdb and hist's "
               f"{len(hists[0].splitlines())} lines identical, card vs CPU")
+
+
+# -- phase 13: the pod ---------------------------------------------------------
+
+POD_TIMEOUT_S = 300  # a pod step, process start-up included
+# one process of a pod step started with the HG_* variables (argv: the
+# launch's epoch time, then the CLI's): the CLI's main, then what the
+# process saw (its start-up from the launch to main, torch imported; its K1
+# launches; its time inside the command; its peak allocated bytes)
+_POD_RANK = """
+import sys, time
+import torch
+from hypergen_tpu_torch.cli import main
+from hypergen_tpu_torch.ops.kernels.hash_kernel import hash_packed_rows
+up = time.time() - float(sys.argv[1])
+t0 = time.monotonic()
+main(sys.argv[2:])
+print(f"pod rank: start-up {up:.3f} s; K1 launches "
+      f"{hash_packed_rows.launches}; {time.monotonic() - t0:.3f} s inside "
+      f"the command; peak allocated {torch.cuda.max_memory_allocated()} B",
+      flush=True)
+"""
+_POD_VARS = ("HG_NUM_PROCESSES", "HG_PROCESS_ID", "HG_COORDINATOR", "HG_DIST",
+             "RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+             "MASTER_ADDR", "MASTER_PORT")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def pod_env(n: int, **extra) -> dict:
+    import os
+
+    env = {k: v for k, v in os.environ.items() if k not in _POD_VARS}
+    env.update(PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""),
+               HG_DIST_TIMEOUT_S=str(POD_TIMEOUT_S),
+               HG_PART_STALL_S=str(POD_TIMEOUT_S),
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or n) // n)), **extra)
+    return env
+
+
+def pod_step(label: str, cmds):
+    """Run the processes of one pod step, cmds = [(argv, env), ...], each
+    in its own session. Returns (wall seconds, process start-up included;
+    each process's stdout). A process that exits non-zero fails the phase
+    with the tail of its output; on any failure every process started is
+    killed with its children."""
+    import os
+    import signal
+
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(argv, env=env, cwd=ROOT, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              start_new_session=True) for argv, env in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=POD_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    wall = time.monotonic() - t0
+    for i, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(f"[phase 13] {label}: process {i} exited {p.returncode}; "
+                  f"stderr tail:\n{err[-4000:]}\nstdout tail:\n{out[-2000:]}",
+                  flush=True)
+        check(p.returncode == 0, f"{label}: process {i} exited "
+                                 f"{p.returncode}")
+    return wall, [out for out, _ in outs]
+
+
+def _field(out: str, before: str, after: str) -> str:
+    """The text between `before` and `after` on the first line of out that
+    holds `before`."""
+    line = next(x for x in out.splitlines() if before in x)
+    return line.split(before, 1)[1].split(after, 1)[0]
+
+
+def pod(torch, tmp: Path, one_proc: dict) -> None:
+    """Phase 13, the pod paths through the CLI, one process per card (2 to
+    4 over NCCL), or, on one card, 2 processes sharing it over gloo: `sketch
+    -o pod.hgdb` of the 16 genomes of phase 5, then `--resume` with phase
+    12's four; `dist -a 95` of derep.hgdb; `search --top_k 10 -a 80` of
+    q.hgdb against db.hgdb, started by torchrun with HG_DIST=1. The .hgdb
+    must equal phase 12's card .hgdb by name, in the pod's row order, and
+    the TSVs phase 12's bytes."""
+    import numpy as np
+
+    from hypergen_tpu_torch.io.fastx import get_fasta_files
+    from hypergen_tpu_torch.io.sketch_db import load_sharded_db
+
+    cards = torch.cuda.device_count()
+    n, backend = (min(cards, 4), "nccl") if cards > 1 else (2, "gloo")
+    phase(13, f"layout: {n} processes, " + (
+        f"one card each, over NCCL" if backend == "nccl"
+        else "sharing cuda:0, over gloo"))
+    torch.cuda.empty_cache()
+
+    def ranks(argv):  # one process per rank, from the HG_* variables
+        port = free_port()
+        return [([sys.executable, "-c", _POD_RANK, repr(time.time()), *argv],
+                 pod_env(n, HG_NUM_PROCESSES=str(n), HG_PROCESS_ID=str(i),
+                         HG_COORDINATOR=f"localhost:{port}"))
+                for i in range(n)]
+
+    def rank0(outs):
+        """Process 0's start-up, group start and time inside the command."""
+        o = outs[0]
+        return (f"process 0: start-up {_field(o, 'start-up ', ' s')} s, "
+                f"group started in {_field(o, 'group started in ', ' s')} "
+                f"s, inside the command {_field(o, 'launches ', ' s')
+                                          .split('; ')[1]} s")
+
+    # sketch: the 16 genomes first (the four resume genomes held aside)
+    gdir, hold, out = tmp / "genomes", tmp / "pod_hold", tmp / "pod.hgdb"
+    hold.mkdir()
+    resumed = sorted(gdir.glob("resumed_*.fna"))
+    for f in resumed:
+        f.rename(hold / f.name)
+    first = get_fasta_files(gdir)
+    argv = ["sketch", "-p", str(gdir), "-o", str(out), "-D", DEVICE]
+    walls, inside = [], []
+    for step in ("sketch", "--resume"):
+        if step == "--resume":
+            for f in resumed:
+                (hold / f.name).rename(f)
+            argv.append("--resume")
+        wall, outs = pod_step(f"pod {step}", ranks(argv))
+        check(all(f"backend {backend}" in o for o in outs),
+              f"pod {step}: a process did not log backend {backend}")
+        k1 = [int(_field(o, "K1 launches ", ";")) for o in outs]
+        check(sum(k1) > 0, f"pod {step}: no process launched K1")
+        walls.append(wall)
+        inside.append(rank0(outs))
+        phase(13, f"pod {step}: K1 launches by process {k1}")
+    new = [f for f in get_fasta_files(gdir) if f not in first]
+    want = [str(f) for part in (first, new) for i in range(n)
+            for f in part[i::n]]
+    manifest = json.loads((out / "manifest.json").read_text())
+    check(manifest["names"] == want and [sh["id"] for sh in manifest["shards"]]
+          == list(range(2 * n)), "pod .hgdb: the rows or shards are not "
+          "files[0::n] + files[1::n] + ... with the resumed shards after")
+    got, ref = load_sharded_db(out), load_sharded_db(tmp / f"{DEVICE}.hgdb")
+    rows = {nm: i for i, nm in enumerate(ref.names)}
+    check(sorted(got.names) == sorted(ref.names) and all(
+        np.array_equal(got.hvs[i], ref.hvs[rows[nm]])
+        and got.norms[i] == ref.norms[rows[nm]]
+        for i, nm in enumerate(got.names)),
+        "pod .hgdb != phase 12's card .hgdb by name")
+    phase(13, f"pod sketch of {len(first)} genomes then --resume of "
+              f"{len(new)}: {len(got.names)} rows in {2 * n} shards equal "
+              f"phase 12's card .hgdb by name, in the pod's row order; "
+              f"wall {walls[0]:.3f} s / {walls[1]:.3f} s ({inside[0]} / "
+              f"{inside[1]}); one process (phase 12, --shards 4): "
+              f"{one_proc['sketch']:.3f} s / {one_proc['resume']:.3f} s")
+
+    # dist -a 95 of the first 16,384 rows
+    derep = str(tmp / "derep.hgdb")
+    wall, outs = pod_step("pod dist", ranks(
+        ["dist", "-r", derep, "-q", derep, "-o", str(tmp / "pod_derep.tsv"),
+         "-a", "95", "-D", DEVICE]))
+    check((tmp / "pod_derep.tsv").read_bytes()
+          == (tmp / "derep.tsv").read_bytes(),
+          "pod dist -a 95 TSV != phase 12's")
+    phase(13, f"pod dist -a 95 of {DEREP_ROWS} rows: TSV byte-identical to "
+              f"phase 12's; wall {wall:.3f} s ({rank0(outs)}); one "
+              f"process (phase 12) {one_proc['dist']:.3f} s")
+
+    # search, started as a user starts a pod on one machine
+    wall, (log_,) = pod_step("pod search", [(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(n), "-m", "hypergen_tpu_torch.cli",
+         "search", "-r", str(tmp / "db.hgdb"), "-q", str(tmp / "q.hgdb"),
+         "-o", str(tmp / "pod_hits.tsv"), "--top_k", str(TOP_K), "-a", "80",
+         "-D", DEVICE], pod_env(n, HG_DIST="1"))])
+    check((tmp / "pod_hits.tsv").read_bytes() == (tmp / "hits.tsv").read_bytes(),
+          "pod search TSV != phase 12's")
+    lines = log_.splitlines()
+    ranges = sorted(tuple(int(x) for x in _field(ln, "rows [", ")").split(", "))
+                    for ln in lines if "holds DB rows" in ln)
+    check(len(ranges) == n and ranges[0][0] == 0 and ranges[-1][1] == DB_ROWS
+          and all(a[1] == b[0] for a, b in zip(ranges, ranges[1:])),
+          f"pod search: row ranges {ranges} are not disjoint and covering "
+          f"[0, {DB_ROWS})")
+    peaks = sorted(_field(ln, "search: process ", " on cuda")
+                   for ln in lines if "peak allocated" in ln)
+    check(len(peaks) == n and sum(f"backend {backend}" in ln for ln in lines)
+          == n, f"pod search: {len(peaks)} peak lines, want {n}")
+    done = next(ln for ln in lines if f"(process 0/{n})" in ln)
+    inside = float(done.split(" in ", 1)[1].split("s -> ", 1)[0])
+    groups = [_field(ln, "started in ", " s") for ln in lines
+              if "group started in" in ln]
+    phase(13, f"pod search --top_k {TOP_K} of {N_QUERIES} queries against "
+              f"{DB_ROWS} rows (torchrun, HG_DIST=1): TSV byte-identical to "
+              f"phase 12's; row ranges {ranges}; peak allocated: "
+              f"{'; '.join(peaks)}; wall {wall:.3f} s (torchrun and "
+              f"process start-up included; groups started in "
+              f"{', '.join(groups)} s; process 0 searched in {inside:.3f} s "
+              f"from the CLI's start after the group's); one process "
+              f"(phase 12 CLI) {one_proc['search']:.3f} s")
 
 
 def main() -> None:
@@ -1310,10 +1529,16 @@ def main() -> None:
         # 12. the database path: search, dist, the dot, .hgdb and hist
         from hypergen_tpu_torch.cli import _load_db
 
-        db = database_search(torch, Path(tmp), _load_db(Path(tmp) / "db.sketch"))
+        one_proc = {}
+        db = database_search(torch, Path(tmp), _load_db(Path(tmp) / "db.sketch"),
+                             one_proc)
         dot_timings(torch, db)
         del db
-        hgdb_cli(torch, Path(tmp))
+        hgdb_cli(torch, Path(tmp), one_proc)
+
+        # 13. the pod: sketch with --resume, dist and search, one process
+        # per card, on phase 12's files
+        pod(torch, Path(tmp), one_proc)
 
     check("jax" not in sys.modules, "jax was imported")
     leaked = sorted(m for m in sys.modules if m.startswith("hypergen_tpu")

@@ -8,18 +8,29 @@ the outputs are byte-identical to ``python -m hypergen_tpu.cli ... -D cpu``:
   hist   -r REF                                      (value\tcount)
 ``-D cuda`` (the default) runs on the CUDA cards (`search` on all of them,
 the rest on the first) and fails when there is none; ``-D cpu`` runs the
-plain PyTorch versions of the kernels. The multi-process (pod) paths of the
-JAX CLI are not in this port.
+plain PyTorch versions of the kernels.
+
+A pod (several processes, ``parallel.mesh``: the ``HG_*`` variables or
+``torchrun`` with ``HG_DIST=1``) runs the JAX CLI's pod paths, each process
+on its own card only: `sketch` into an ``.hgdb`` (process p sketches
+files[p::n] into one shard; process 0 merges the manifest; ``--resume``
+keeps the existing shards as the prefix), `dist` (each process takes its
+own range of reference rows; process 0 merges the parts into the TSV) and
+`search` (each process loads only its own DB rows; the top-k candidates
+are gathered). The outputs are the one-process run's bytes.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 from hypergen_tpu_torch import params as P
 from hypergen_tpu_torch.params import DistParams, SketchParams
@@ -59,9 +70,9 @@ def _add_common(sp: argparse.ArgumentParser) -> None:
     sp.add_argument("-D", "--device", type=str, default="cuda",
                     choices=["cuda", "cpu"],
                     help="device: 'cuda' runs on the first CUDA card "
-                         "(search: on every card) and fails without one; "
-                         "'cpu' runs the plain PyTorch versions of the "
-                         "kernels")
+                         "(search: on every card; a pod process: on its "
+                         "own card only) and fails without one; 'cpu' runs "
+                         "the plain PyTorch versions of the kernels")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -156,6 +167,7 @@ def run_sketch(args) -> None:
         append_db_shard, dump_sharded_db, dump_sketch, sketches_to_db,
     )
     from hypergen_tpu_torch.models.sketcher import Sketcher
+    from hypergen_tpu_torch.parallel import mesh
 
     sp = SketchParams(
         path=args.path, out_file=args.out, sketch_method=args.sketch_method,
@@ -168,6 +180,12 @@ def run_sketch(args) -> None:
         log.error("no FASTA files found under %s", sp.path)
         sys.exit(1)
     is_hgdb = str(args.out).endswith(".hgdb")
+    if mesh.process_count() > 1:
+        if not is_hgdb:
+            log.error("multi-host sketching requires an .hgdb output")
+            sys.exit(1)
+        _run_sketch_pod(sp, files, args)
+        return
     resuming = False
     if args.resume and is_hgdb and (Path(args.out) / "manifest.json").exists():
         manifest = json.loads((Path(args.out) / "manifest.json").read_text())
@@ -241,21 +259,85 @@ def _filter_resumed(manifest: dict, files) -> tuple:
     return remaining, len(files) - len(remaining)
 
 
-def run_dist(args) -> None:
+def _run_sketch_pod(sp: SketchParams, files, args) -> None:
+    """Pod sketch: process p sketches files[p::nproc] on its own card and
+    writes one DB shard; process 0 merges the manifest. With --resume on an
+    existing .hgdb, sketched genomes are skipped and the existing shards
+    stay the merged manifest's prefix. The JAX package's _run_sketch_pod,
+    except that a huge genome's sequence-parallel route stays on this
+    process's card (Sketcher's seqpar_devices)."""
+    from hypergen_tpu_torch.io.sketch_db import (
+        ShardedDB, dump_db_shard_part, merge_db_parts, sketches_to_db,
+    )
+    from hypergen_tpu_torch.models.sketcher import Sketcher
+    from hypergen_tpu_torch.parallel import mesh
+
+    token = mesh.shared_run_token()  # guards the merge against stale parts
+    pid, nproc = mesh.process_index(), mesh.process_count()
+    base_manifest = None
+    shard_offset = 0
+    manifest_path = Path(args.out) / "manifest.json"
+    if args.resume and manifest_path.exists():
+        base_manifest = json.loads(manifest_path.read_text())
+        _check_resume_params(base_manifest, sp)
+        files, skipped = _filter_resumed(base_manifest, files)
+        if skipped and pid == 0:
+            log.info("Resume: %d of %d genomes already sketched", skipped,
+                     skipped + len(files))
+        shard_offset = max(
+            (sh["id"] + 1 for sh in base_manifest["shards"]), default=0
+        )
+    mine = files[pid::nproc]
+    (card,) = mesh.local_devices(args.device)
+    log.info("Pod sketch: process %d/%d takes %d of %d files on %s",
+             pid, nproc, len(mine), len(files), card)
+    t0 = time.monotonic()
+    sketches = Sketcher(sp, device=card, seqpar_devices=[card]).sketch_files(
+        mine)
+    dt = time.monotonic() - t0
+    log.info("Sketching %d files took %.2fs - Speed: %.1f files/s",
+             len(mine), dt, len(mine) / dt if dt > 0 else 0.0)
+    if sketches:
+        db = sketches_to_db(sketches)
+        db.sketch_method = sp.sketch_method
+    else:  # more processes than files: publish an empty part
+        db = ShardedDB(
+            ksize=sp.ksize, scaled=sp.scaled, canonical=sp.canonical,
+            seed=sp.seed, hv_d=sp.hv_d, names=[],
+            hvs=np.zeros((0, sp.hv_d), np.int16),
+            norms=np.zeros((0,), np.int32),
+            sketch_method=sp.sketch_method,
+        )
+    dump_db_shard_part(
+        db, args.out, pid, nproc, token=token, shard_id=shard_offset + pid
+    )
+    if pid == 0:
+        merge_db_parts(args.out, nproc, token=token,
+                       base_manifest=base_manifest)
+        log.info("Merged %d DB parts into %s", nproc, args.out)
+
+
+def run_dist(args, top_k: int = 0) -> None:
+    """All-pairs dist. top_k (library callers only; the CLI always passes
+    0) is a global cap on report rows, not the per-query cap of `search`."""
     from hypergen_tpu_torch.models.comparator import (
         Comparator,
         report_sparsity,
         write_ani_report,
     )
+    from hypergen_tpu_torch.parallel import mesh
 
     dp = DistParams(
         path_ref_sketch=args.path_r, path_query_sketch=args.path_q,
         out_file=args.out, ksize=args.ksize, hv_d=args.hv_d,
-        ani_threshold=args.ani_th,
+        ani_threshold=args.ani_th, top_k=top_k,
     )
     device = _device(args.device)
     t0 = time.monotonic()
     if_sym = dp.path_ref_sketch == dp.path_query_sketch
+    if mesh.process_count() > 1:
+        _run_dist_pod(dp, if_sym, t0, mesh.local_devices(args.device)[0])
+        return
     ref_db = _load_db(dp.path_ref_sketch)
     query_db = ref_db if if_sym else _load_db(dp.path_query_sketch)
     if ref_db.ksize != query_db.ksize:
@@ -278,7 +360,7 @@ def run_dist(args) -> None:
         )
     n_rep = write_ani_report(
         dp.out_file, ref_db.names, query_db.names, ri, qi, ani,
-        dp.ani_threshold,
+        dp.ani_threshold, top_k=dp.top_k,
     )
     report_sparsity(n_rep, n_total, dp.ani_threshold)
     log.info(
@@ -287,13 +369,153 @@ def run_dist(args) -> None:
     )
 
 
+# query rows a pod process holds at once when it streams the query side
+Q_CHUNK = 8192
+
+
+def _run_dist_pod(dp: DistParams, if_sym: bool, t0: float, device) -> None:
+    """Pod dist: process p computes the pairs of its own reference row
+    range [round(p*M/n), round((p+1)*M/n)) on `device`; process 0 merges
+    the parts into the TSV. An .hgdb is read row range by row range
+    (load_db_rows); a .sketch is loaded once and row-sliced. Queries stream
+    in Q_CHUNK rows; global row offsets keep the symmetric i < j pair set
+    exact across processes and let the comparator skip tiles below the
+    diagonal. The merge loads the parts one at a time with int32 indices
+    and streams the TSV (write_ani_report). The JAX package's
+    _run_dist_pod."""
+    from hypergen_tpu_torch.io.sketch_db import (
+        load_db_rows, wait_for_part_files,
+    )
+    from hypergen_tpu_torch.models.comparator import (
+        Comparator, report_sparsity, write_ani_report,
+    )
+    from hypergen_tpu_torch.parallel import mesh
+
+    token = mesh.shared_run_token()
+    pid, nproc = mesh.process_index(), mesh.process_count()
+    r_is_hgdb = Path(dp.path_ref_sketch).is_dir()
+    if r_is_hgdb:
+        manifest = json.loads(
+            (Path(dp.path_ref_sketch) / "manifest.json").read_text()
+        )
+        M, r_names, r_ksize, r_hvd = (
+            manifest["n_genomes"], manifest["names"],
+            manifest["ksize"], manifest["hv_d"],
+        )
+    else:
+        ref_full = _load_db(dp.path_ref_sketch)
+        M, r_names, r_ksize, r_hvd = (
+            len(ref_full.names), ref_full.names,
+            ref_full.ksize, ref_full.hv_d,
+        )
+    q_is_hgdb = Path(dp.path_query_sketch).is_dir()
+    if q_is_hgdb:
+        q_manifest = json.loads(
+            (Path(dp.path_query_sketch) / "manifest.json").read_text()
+        )
+        q_names, q_ksize, q_hvd = (
+            q_manifest["names"], q_manifest["ksize"], q_manifest["hv_d"],
+        )
+    else:
+        query_full = ref_full if if_sym else _load_db(dp.path_query_sketch)
+        q_names, q_ksize, q_hvd = (
+            query_full.names, query_full.ksize, query_full.hv_d,
+        )
+    if r_ksize != q_ksize or r_hvd != q_hvd:
+        log.error("Ref and query sketch parameters mismatch!")
+        sys.exit(1)
+    N = len(q_names)
+    lo = round(pid * M / nproc)
+    hi = round((pid + 1) * M / nproc)
+    log.info("Pod dist: process %d/%d takes reference rows [%d, %d) of %d",
+             pid, nproc, lo, hi, M)
+    ref_part = (
+        load_db_rows(dp.path_ref_sketch, lo, hi)
+        if r_is_hgdb else _slice_db(ref_full, lo, hi)
+    )
+    comp = Comparator(ksize=q_ksize, device=device)
+    thresholded = dp.ani_threshold >= THRESHOLDED_DIST_MIN
+    ref_blocks = (
+        comp.preload_ref(ref_part) if thresholded
+        else comp.preload_rows(ref_part.hvs)
+    )
+    pairs = (comp.ani_pairs_thresholded if thresholded
+             else comp.ani_pairs_streamed)
+    rs, qs, asv = [], [], []
+    for qlo in range(0, N, Q_CHUNK):
+        qhi = min(qlo + Q_CHUNK, N)
+        q_part = (
+            load_db_rows(dp.path_query_sketch, qlo, qhi)
+            if q_is_hgdb else _slice_db(query_full, qlo, qhi)
+        )
+        ri, qi, ani, _ = pairs(
+            ref_part, q_part, symmetric=if_sym, threshold=dp.ani_threshold,
+            ref_blocks=ref_blocks, ref_offset=lo, query_offset=qlo,
+        )
+        rs.append((ri + lo).astype(np.int32))
+        qs.append((qi + qlo).astype(np.int32))
+        asv.append(ani)
+    ri = np.concatenate(rs) if rs else np.zeros(0, np.int32)
+    qi = np.concatenate(qs) if qs else np.zeros(0, np.int32)
+    ani = np.concatenate(asv) if asv else np.zeros(0, np.float32)
+    n_total = M * (M - 1) // 2 if if_sym else M * N
+    out = Path(dp.out_file)
+    part = out.with_suffix(out.suffix + f".part{pid:05d}.{token}.npz")
+    np.savez(part, ri=ri, qi=qi, ani=ani)
+    part.with_suffix(".done").write_text("ok")
+    if pid != 0:
+        return
+    # process 0: wait for this run's parts and merge them in rank order,
+    # one part at a time, with int32 indices (12 B a pair and the sort)
+    parts = [
+        out.with_suffix(out.suffix + f".part{p:05d}.{token}.npz")
+        for p in range(nproc)
+    ]
+    wait_for_part_files([p.with_suffix(".done") for p in parts])
+    ri_l, qi_l, ani_l = [], [], []
+    for p in parts:
+        with np.load(p) as z:
+            ri_l.append(z["ri"].astype(np.int32, copy=False))
+            qi_l.append(z["qi"].astype(np.int32, copy=False))
+            ani_l.append(z["ani"])
+    ri, qi, ani = (
+        np.concatenate(ri_l), np.concatenate(qi_l), np.concatenate(ani_l)
+    )
+    del ri_l, qi_l, ani_l
+    order = np.lexsort((qi, ri))
+    ri, qi, ani = ri[order], qi[order], ani[order]
+    del order
+    n_rep = write_ani_report(
+        out, r_names, q_names, ri, qi, ani, dp.ani_threshold,
+        top_k=dp.top_k,
+    )
+    for p in parts:
+        p.unlink(missing_ok=True)
+        p.with_suffix(".done").unlink(missing_ok=True)
+    report_sparsity(n_rep, n_total, dp.ani_threshold)
+    log.info(
+        "Computed ANIs for %d ref files and %d query files took %.3fs",
+        M, N, time.monotonic() - t0,
+    )
+
+
+def _slice_db(db, lo: int, hi: int):
+    """Rows [lo, hi) of a ShardedDB, as views."""
+    return dataclasses.replace(
+        db, names=db.names[lo:hi], hvs=db.hvs[lo:hi], norms=db.norms[lo:hi]
+    )
+
+
 def run_search(args) -> None:
+    from hypergen_tpu_torch.parallel import mesh
     from hypergen_tpu_torch.parallel.search import (
         default_devices, run_search_cli,
     )
 
     _device(args.device)
-    run_search_cli(args, _load_db, default_devices(args.device))
+    devices = (mesh.local_devices(args.device) if mesh.process_count() > 1
+               else default_devices(args.device))
+    run_search_cli(args, _load_db, devices)
 
 
 def run_hist(args) -> None:
@@ -315,14 +537,23 @@ def run_hist(args) -> None:
 def main(argv=None) -> None:
     setup_logging()
     args = build_parser().parse_args(argv)
-    if args.mode == P.CMD_SKETCH:
-        run_sketch(args)
-    elif args.mode == P.CMD_DIST:
-        run_dist(args)
-    elif args.mode == P.CMD_SEARCH:
-        run_search(args)
-    elif args.mode == "hist":
-        run_hist(args)
+    # a pod's group starts before the first CUDA allocation; without it
+    # every pod branch below would run as N one-process runs
+    from hypergen_tpu_torch.parallel import mesh
+
+    owned = mesh.maybe_init_distributed(getattr(args, "device", "cpu"))
+    try:
+        if args.mode == P.CMD_SKETCH:
+            run_sketch(args)
+        elif args.mode == P.CMD_DIST:
+            run_dist(args)
+        elif args.mode == P.CMD_SEARCH:
+            run_search(args)
+        elif args.mode == "hist":
+            run_hist(args)
+    finally:
+        if owned:
+            mesh.finalize()
 
 
 if __name__ == "__main__":

@@ -24,10 +24,12 @@ default chunk size: plant and fungal assemblies) leaves the batches. On a
 CUDA device it runs alone as a one-row batch of the same step while its
 positions fit K1's int32 positions and its measured memory fits the card
 (``ONE_ROW_*`` below): on the H100 that is the fastest route. Above that,
-with more than one CUDA card it is split over them (``parallel.seqpar``,
-K2); otherwise, and always on the CPU as in the JAX package, it streams
-through the same K1 step in fixed-size tiles whose survivor sets are merged
-on the host and encoded once (``sketch_packed_tiled``).
+when the Sketcher may use more than one CUDA card (``seqpar_devices``:
+every card of the host by default, only its own card in a pod process) it
+is split over them (``parallel.seqpar``, K2); otherwise, and always on the
+CPU as in the JAX package, it streams through the same K1 step in
+fixed-size tiles whose survivor sets are merged on the host and encoded
+once (``sketch_packed_tiled``).
 """
 
 from __future__ import annotations
@@ -145,10 +147,16 @@ class Sketcher:
         chunk_positions: int = 1 << 17,
         batch: int = 8,
         seqpar_min_chunks: int = 512,
+        seqpar_devices: Optional[Sequence] = None,
     ):
+        """seqpar_devices: the CUDA cards a huge genome may be split over;
+        None = every card of the host. A pod process passes its own card
+        only, so that its route never reaches another rank's card."""
         params.validate()
         self.params = params
         self.device = torch.device(device)
+        self.seqpar_devices = (None if seqpar_devices is None else
+                               [torch.device(d) for d in seqpar_devices])
         self.seqpar_min_chunks = int(seqpar_min_chunks)
         self.C = int(chunk_positions)
         self.cells = packed_cells(self.C)
@@ -320,20 +328,25 @@ class Sketcher:
     def _sketch_huge(self, g: PackedGenome) -> Dict[str, object]:
         """A genome at or above seqpar_min_chunks. On a CUDA device it runs
         as a one-row batch where that fits (``_one_row_fits``: the fastest
-        route on the H100); above that it is split over the CUDA cards when
-        there are several, else tiled on this device. On the CPU it is
+        route on the H100); above that it is split over seqpar_devices when
+        they are several cards, else tiled on this device. On the CPU it is
         tiled, as the JAX package routes it."""
         if self.device.type == "cuda":
             if self._one_row_fits(g.length):
                 return self.sketch_batch([g])[0]
-            if torch.cuda.device_count() > 1:
+            cards = self.seqpar_devices
+            if cards is None:
+                cards = [torch.device("cuda", i)
+                         for i in range(torch.cuda.device_count())]
+            if len(cards) > 1:
                 # imported here: seqpar imports this module
                 from hypergen_tpu_torch.parallel.seqpar import (
                     sketch_codes_seqpar,
                 )
 
                 return sketch_codes_seqpar(
-                    codes_from_packed(g), self.params, chunk_positions=self.C
+                    codes_from_packed(g), self.params, cards,
+                    chunk_positions=self.C,
                 )
         return self.sketch_packed_tiled(g)
 

@@ -1,10 +1,10 @@
-"""Database search: per-shard top-k ANI and a merge, in one process.
+"""Database search: per-shard top-k ANI and a merge.
 
-Counterpart of the single-process part of ``hypergen_tpu.parallel.search``.
-The JAX package shards the DB over a (db, q) mesh with ``shard_map`` and
-merges the per-shard candidates with ``all_gather``. Here one process walks
-a list of ``torch.device``s (repeats allowed, as ``parallel.seqpar`` takes
-them), and the collective becomes copies to ``devices[0]``:
+Counterpart of ``hypergen_tpu.parallel.search``. The JAX package shards the
+DB over a (db, q) mesh with ``shard_map`` and merges the per-shard
+candidates with ``all_gather``. Here one process walks a list of
+``torch.device``s (repeats allowed, as ``parallel.seqpar`` takes them), and
+the collective becomes copies to ``devices[0]``:
 
   DB rows padded with zero HVs to a multiple of the device count, one
     contiguous range of rows per device
@@ -15,14 +15,17 @@ them), and the collective becomes copies to ``devices[0]``:
 Ranking follows ``jax.lax.top_k``: ANI descending, and among equal values
 the lower DB row first (``ops.ani.topk_desc``); the padded rows are ranked
 as the JAX package ranks them and then masked, so the winners, the -inf
-slots included, are the JAX package's. The multi-process (pod) paths are
-not in this module.
+slots included, are the JAX package's. In a pod (``parallel.mesh``),
+``multihost_topk_search`` runs that per process over its own rows and
+gathers the processes' candidates with ``torch.distributed.all_gather``.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import time
+from pathlib import Path
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -63,12 +66,12 @@ def _on_devices(devices, *arrays):
                      for a in arrays) for d in set(devices)}
 
 
-def _block_topk(devices, db_hv, db_norm, lo: int, rows: int, q_on,
-                ksize: int, k_top: int, mode):
+def _block_candidates(devices, db_hv, db_norm, lo: int, rows: int, q_on,
+                      ksize: int, k_top: int, mode):
     """Top-k of rows [lo, lo + rows) of the DB (zero-padded past its end)
     split evenly over ``devices``; the sharded program of the JAX package
-    (``_local_search``). Returns numpy (ani, idx local to the block, dot),
-    each [N, k_top]."""
+    (``_local_search``). Returns tensors on devices[0] (ani, idx local to
+    the block, dot), each [N, k_top]."""
     rp = rows // len(devices)
     home = devices[0]
     vs, ids, ds = [], [], []
@@ -86,10 +89,21 @@ def _block_topk(devices, db_hv, db_norm, lo: int, rows: int, q_on,
         vs.append(v.to(home))
         ids.append((i + di * rp).to(home))
         ds.append(d.to(home))
+    return _merge(vs, ids, ds, k_top)
+
+
+def _merge(vs, ids, ds, k_top: int):
+    """Top-k over candidate lists concatenated in list order; among equal
+    ANIs the earlier position wins (topk_desc)."""
     mv, mp = topk_desc(torch.cat(vs, dim=1), k_top)
     mi = torch.gather(torch.cat(ids, dim=1), 1, mp)
     md = torch.gather(torch.cat(ds, dim=1), 1, mp)
-    return mv.cpu().numpy(), mi.cpu().numpy(), md.cpu().numpy()
+    return mv, mi, md
+
+
+def _block_topk(*args):
+    """_block_candidates as numpy arrays."""
+    return tuple(t.cpu().numpy() for t in _block_candidates(*args))
 
 
 def _mask_padding(ani, idx, dot, M: int, Mp: int):
@@ -220,17 +234,73 @@ def topk_search(
     )
 
 
-def write_search_tsv(out, ref_names, ref_norms: np.ndarray, query_db,
-                     ani: np.ndarray, idx: np.ndarray, dot: np.ndarray,
-                     threshold: float) -> int:
-    """The search TSV from top-k winners; returns the rows written.
+def multihost_topk_search(
+    db, q_hv: np.ndarray, q_norm: np.ndarray, ksize: int, k_top: int,
+    devices: Sequence, mode=None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pod DB search: each process holds only its own devices' DB rows.
 
-    Each winner's ANI is recomputed from its exact dot by the host float
-    chain, so the rows print as `dist` rows do; -inf slots (short shards)
-    become NaN, which the writer drops."""
-    from hypergen_tpu_torch.models.comparator import (
-        ani_host_pairs, write_search_report,
-    )
+    db: an .hgdb directory (each process memory-maps only its rows with
+    load_db_rows) or a ShardedDB every process has loaded. The global
+    shards are the processes' device lists in rank order: shard
+    g = rank * n_local + i owns rows [g * rp, min((g + 1) * rp, M)) with
+    rp = ceil(M / (nproc * n_local)), so a process's rows are one range,
+    zero-padded to n_local * rp. Each process ranks its shards as
+    sharded_topk_search does and merges them; all_gather brings every
+    process's [N, k] candidates, merged rank-major and masked as the JAX
+    package's multihost_topk_search. Ties keep ``jax.lax.top_k``'s rule
+    (equal ANI: the lower global row first) through both merges: each
+    stage lists the candidates of lower rows first among equal values, so
+    the two-stage top-k picks and orders what one top-k over every shard
+    would. Each process resolves its dot mode from its own rows and the
+    queries; every mode is exact, so processes need not agree. Call after
+    parallel.mesh's init; with one process it is sharded_topk_search.
+    Returns (ani, idx, dot) [N, k_top], the same on every process.
+    """
+    from hypergen_tpu_torch.io.sketch_db import ShardedDB, load_db_rows
+    from hypergen_tpu_torch.parallel import mesh
+
+    devs = [torch.device(d) for d in devices]
+    rank, nproc = mesh.process_index(), mesh.process_count()
+    n_local = len(devs)
+    if nproc > 1:
+        counts = mesh.all_gather(torch.tensor([n_local]))
+        if any(int(c) != n_local for c in counts):
+            raise ValueError(f"pod search: device counts differ across "
+                             f"processes: {[int(c) for c in counts]}")
+    in_memory = isinstance(db, ShardedDB)
+    M = len(db.names) if in_memory else json.loads(
+        (Path(db) / "manifest.json").read_text())["n_genomes"]
+    block = n_local * -(-M // (nproc * n_local))
+    lo, hi = min(rank * block, M), min((rank + 1) * block, M)
+    if in_memory:
+        hv, norm = db.hvs[lo:hi], db.norms[lo:hi]
+    else:
+        part = load_db_rows(db, lo, hi)
+        hv, norm = part.hvs, part.norms
+    log.info("pod search: process %d/%d holds DB rows [%d, %d) of %d",
+             rank, nproc, lo, hi, M)
+    mode = resolve_mode(mode, devs[0], hv, q_hv)
+    q_on = _on_devices(devs, q_hv, q_norm)
+    v, i, d = _block_candidates(devs, hv, norm, 0, block, q_on, ksize, k_top,
+                                mode)
+    i = i + rank * block
+    if nproc > 1:
+        v, i, d = _merge(*(mesh.all_gather(t) for t in (v, i, d)), k_top)
+    if devs[0].type == "cuda":
+        log.info("pod search: process %d/%d peak allocated %d B on %s",
+                 rank, nproc, torch.cuda.max_memory_allocated(devs[0]),
+                 devs[0])
+    return _mask_padding(*(t.cpu().numpy() for t in (v, i, d)), M,
+                         nproc * block)
+
+
+def _exact_ani(ref_norms, query_db, ani: np.ndarray, idx: np.ndarray,
+               dot: np.ndarray) -> np.ndarray:
+    """Each winner's ANI from its exact dot by the host float chain (so the
+    rows print as `dist` rows do); -inf slots (short shards) become NaN,
+    which the writer drops."""
+    from hypergen_tpu_torch.models.comparator import ani_host_pairs
 
     N, k_top = ani.shape
     exact = ani_host_pairs(
@@ -239,30 +309,70 @@ def write_search_tsv(out, ref_names, ref_norms: np.ndarray, query_db,
         np.repeat(np.asarray(query_db.norms), k_top),
         query_db.ksize,
     ).reshape(N, k_top)
-    exact = np.where(np.isfinite(ani), exact, np.nan)
-    return write_search_report(out, ref_names, query_db.names, idx, exact,
-                               threshold)
+    return np.where(np.isfinite(ani), exact, np.nan)
+
+
+def write_search_tsv(out, ref_names, ref_norms: np.ndarray, query_db,
+                     ani: np.ndarray, idx: np.ndarray, dot: np.ndarray,
+                     threshold: float) -> int:
+    """The search TSV from top-k winners (_exact_ani); returns the rows
+    written."""
+    from hypergen_tpu_torch.models.comparator import write_search_report
+
+    return write_search_report(
+        out, ref_names, query_db.names, idx,
+        _exact_ani(ref_norms, query_db, ani, idx, dot), threshold)
 
 
 def run_search_cli(args, load_db, devices: Sequence) -> None:
-    """CLI glue for the `search` subcommand on one process.
+    """CLI glue for the `search` subcommand.
 
     Output rows are byte-consistent with `dist`: the `ref\\tquery\\tani`
     columns (reference:src/utils.rs:272-286), with each winner's ANI from
-    the host chain on its exact dot (the device float chain only ranks)."""
+    the host chain on its exact dot (the device float chain only ranks).
+    In a pod, every process searches its own DB rows on `devices` (its own
+    card) through multihost_topk_search; an .hgdb reference is read only
+    in those rows, a .sketch is loaded whole by each process. Process 0
+    writes the TSV, the others only count its rows."""
+    from hypergen_tpu_torch.models.comparator import count_search_hits
+    from hypergen_tpu_torch.parallel import mesh
+
     t0 = time.monotonic()
     query_db = load_db(args.path_q)
-    ref_db = load_db(args.path_r)
-    if ref_db.ksize != query_db.ksize or ref_db.hv_d != query_db.hv_d:
-        raise SystemExit("ref/query sketch parameter mismatch")
-    M, N = ref_db.hvs.shape[0], query_db.hvs.shape[0]
+    pod = mesh.process_count() > 1
+    if pod and Path(args.path_r).is_dir():
+        from hypergen_tpu_torch.io.sketch_db import load_db_norms
+
+        manifest = json.loads((Path(args.path_r) / "manifest.json")
+                              .read_text())
+        if (manifest["ksize"] != query_db.ksize
+                or manifest["hv_d"] != query_db.hv_d):
+            raise SystemExit("ref/query sketch parameter mismatch")
+        ref, M = args.path_r, manifest["n_genomes"]
+        ref_names, ref_norms = manifest["names"], load_db_norms(args.path_r)
+    else:
+        ref = load_db(args.path_r)
+        if ref.ksize != query_db.ksize or ref.hv_d != query_db.hv_d:
+            raise SystemExit("ref/query sketch parameter mismatch")
+        M, ref_names, ref_norms = ref.hvs.shape[0], ref.names, ref.norms
+    N = query_db.hvs.shape[0]
     k_top = min(args.top_k, M)
-    ani, idx, dot = topk_search(devices, ref_db.hvs, ref_db.norms,
-                                query_db.hvs, query_db.norms,
-                                ref_db.ksize, k_top)
-    n_hits = write_search_tsv(args.out, ref_db.names, ref_db.norms, query_db,
-                              ani, idx, dot, args.ani_th)
+    if pod:
+        ani, idx, dot = multihost_topk_search(
+            ref, query_db.hvs, query_db.norms, query_db.ksize, k_top, devices)
+    else:
+        ani, idx, dot = topk_search(devices, ref.hvs, ref.norms,
+                                    query_db.hvs, query_db.norms, ref.ksize,
+                                    k_top)
+    if mesh.process_index() == 0:
+        n_hits = write_search_tsv(args.out, ref_names, ref_norms, query_db,
+                                  ani, idx, dot, args.ani_th)
+    else:  # the results are the same on every process
+        n_hits = count_search_hits(
+            _exact_ani(ref_norms, query_db, ani, idx, dot), args.ani_th)
     log.info(
-        "Searched %d queries against %d refs (top-%d) in %.3fs -> %d hits",
+        "Searched %d queries against %d refs (top-%d) in %.3fs -> %d hits%s",
         N, M, k_top, time.monotonic() - t0, n_hits,
+        f" (process {mesh.process_index()}/{mesh.process_count()})" if pod
+        else "",
     )

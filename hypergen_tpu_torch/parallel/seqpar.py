@@ -25,7 +25,12 @@ The compaction sizes its output to the true survivor count, so the JAX
 version's ``chunk_cap`` / ``enc_cap`` retry ladder has no counterpart: no
 capacity can overflow. A device may appear more than once in the list
 (``["cpu"] * 4``, ``[cuda:0] * 4``), which runs the cross-shard merge on
-one device. Multi-process ``torch.distributed`` is later work.
+one device. The split stays inside one process: a pod process passes only
+its own card (``Sketcher(seqpar_devices=...)``), and a huge genome of its
+share takes the one-row batch or the tiled route there. There is no
+cross-process seqpar: the JAX package's pod sketch would start one over
+the global device count, which the other processes, sketching other files,
+never join.
 """
 
 from __future__ import annotations

@@ -315,3 +315,82 @@ def test_cuda_sharded_search_matches_tiled(cuda):
         np.testing.assert_array_equal(x, z)
     np.testing.assert_allclose(a[0], c[0], rtol=0, atol=1e-4)
     np.testing.assert_array_equal(a[1][0, :3], [1, 4, 199])
+
+
+_POD_SEARCH = """
+import sys
+import numpy as np
+from hypergen_tpu_torch.parallel import mesh
+from hypergen_tpu_torch.parallel.search import multihost_topk_search
+from hypergen_tpu_torch.utils.logging import setup_logging
+setup_logging()
+mesh.maybe_init_distributed("cuda")
+try:
+    q = np.load(sys.argv[2])
+    res = multihost_topk_search(sys.argv[1], q["hv"], q["norm"], 21, 7,
+                                mesh.local_devices("cuda"))
+    np.savez(sys.argv[3] % mesh.process_index(), ani=res[0], idx=res[1],
+             dot=res[2])
+finally:
+    mesh.finalize()
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_pod_search_matches_sharded(cuda, tmp_path):
+    """Two processes, each on its own card over NCCL (one card: both on
+    cuda:0 over gloo), run multihost_topk_search; the arrays equal the
+    one-process sharded_topk_search over the same cards."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from hypergen_tpu_torch.io.sketch_db import ShardedDB, dump_sharded_db
+    from hypergen_tpu_torch.parallel.search import sharded_topk_search
+
+    hv, norm = _hv_rows(5, 301, 256)
+    qhv, qnorm = _hv_rows(6, 24, 256, dups=False)
+    qhv[0], qnorm[0] = hv[1], norm[1]
+    dump_sharded_db(ShardedDB(ksize=21, scaled=1500, canonical=True,
+                              seed=123, hv_d=256,
+                              names=[f"r{i}" for i in range(301)], hvs=hv,
+                              norms=norm), tmp_path / "r.hgdb", n_shards=3)
+    np.savez(tmp_path / "q.npz", hv=qhv, norm=qnorm)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = Path(__file__).resolve().parent.parent
+    procs = []
+    for pid in range(2):
+        env = dict(os.environ, HG_NUM_PROCESSES="2", HG_PROCESS_ID=str(pid),
+                   HG_COORDINATOR=f"localhost:{port}",
+                   HG_DIST_TIMEOUT_S="120",
+                   PYTHONPATH=str(root) + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        env.pop("LOCAL_RANK", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _POD_SEARCH, str(tmp_path / "r.hgdb"),
+             str(tmp_path / "q.npz"), str(tmp_path / "out%d.npz")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    assert all(f"backend {backend}" in out for out in outs)
+    devs = [torch.device("cuda", i % cards) for i in range(2)]
+    want = sharded_topk_search(devs, hv, norm, qhv, qnorm, 21, 7)
+    for r in range(2):
+        got = np.load(tmp_path / f"out{r}.npz")
+        for name, w in zip(("ani", "idx", "dot"), want):
+            np.testing.assert_array_equal(got[name], w)
+    np.testing.assert_array_equal(want[1][0, :3], [1, 4, 300])

@@ -186,8 +186,9 @@ def test_huge_genome_route(monkeypatch, device, cards, free, length, route):
     monkeypatch.setattr(sk, "sketch_packed_tiled",
                         lambda g: seen.append("tiled"))
     monkeypatch.setattr(seqpar, "sketch_codes_seqpar",
-                        lambda codes, params, chunk_positions:
-                        seen.append("seqpar"))
+                        lambda codes, params, devices, chunk_positions:
+                        seen.append("seqpar" if len(devices) == cards
+                                    else f"seqpar on {devices}"))
     # 3000 bp: a 2-chunk bucket of 2048 positions
     sk._sketch_huge(PackedGenome(np.zeros(1, np.uint8),
                                  np.zeros((0, 2), np.int32), length))
