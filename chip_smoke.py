@@ -29,7 +29,13 @@ at 2048 x 2048 x 4096, and `sketch -o .hgdb --shards 4` with `--resume` and
 in child processes, one per card over NCCL (two sharing the one card over
 gloo on a one-card machine): `sketch` with `--resume`, `dist -a 95` and
 `search` (started by torchrun), each held to phase 12's one-process bytes,
-with each process's row range, K1 launches, times and peak memory. Every
+with each process's row range, K1 launches, times and peak memory. Phase
+14 prints the sketch's per-stage times (HG_STAGE_TIMING) for the 16 genomes
+and the 2^27 bp genome, checks that they cover the sketch's wall and leave
+its bytes unchanged and that an HG_TRACE_DIR trace names K1; then it
+sketches a 2,181,038,080 bp genome (2^31 + 2^25, N runs on both sides of
+2^31) through the CLI, the tiled route and seqpar over its parsed codes,
+each equal to seqpar over codes made from the records in memory. Every
 phase prints its lines; any failure raises and exits non-zero before the
 last line. The last two lines are the kernel table and the result, each
 one JSON object.
@@ -37,6 +43,7 @@ one JSON object.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gzip
 import json
@@ -1470,7 +1477,312 @@ def pod(torch, tmp: Path, one_proc: dict) -> None:
               f"(phase 12 CLI) {one_proc['search']:.3f} s")
 
 
+# -- phase 14: a genome above 2^31 bp, and the stage table ---------------------
+
+P4_BP = (1 << 31) + (1 << 25)  # 2,181,038,080 bp: a maize-sized assembly
+G31 = 1 << 31
+# record lengths: the second record boundary lies above 2^31
+P4_RECORDS = (1_200_000_000, G31 + (1 << 24) - 1_200_000_000, 1 << 24)
+P4_SEQPAR_SHARDS = 8  # the run-free reference: seqpar over [cuda:0] x 8
+LINE_BP = 80
+STAGE_SUM_TOLERANCE = 0.10  # the stages must cover the sketch_files wall
+
+
+def p4_genome_records(seed: int):
+    """The P4 genome in memory: three records of seeded random ACGT, P4_BP
+    bases in all, with N runs of 1-5000 bases: 60 below 2^31, one across
+    it and 30 above it (in the second and the third record), none touching
+    another or a record separator. Returns (records [(name, bytes)], the
+    invalid runs in code coordinates, separators included, sorted)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    starts = np.cumsum((0,) + P4_RECORDS[:-1]) + np.arange(3)  # code pos
+    seps = [(int(s) - 1, int(s)) for s in starts[1:]]
+    across = (G31 - 3000, G31 + 4000)
+    runs = [across]
+    for lo, hi, n in ((0, G31, 60), (G31, P4_BP, 30)):
+        grid = (hi - lo) // (2 * n)  # one run at each of n grid points
+        cuts = rng.choice(2 * n - 1, size=n, replace=False) + 1
+        lens = rng.integers(1, min(5000, grid // 2) + 1, size=n)
+        runs += [(lo + int(c) * grid, lo + int(c) * grid + int(m))
+                 for c, m in zip(cuts, lens)]
+    runs = sorted(r for r in runs if r == across or all(
+        r[1] < a or r[0] > b for a, b in seps + [across]))
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    records, step = [], 1 << 26
+    for i, n in enumerate(P4_RECORDS):
+        seq = np.empty(n, np.uint8)
+        for a in range(0, n, step):
+            m = min(step, n - a)
+            seq[a : a + m] = lut[np.frombuffer(rng.bytes(m), np.uint8) & 3]
+        for lo, hi in runs:
+            if starts[i] <= lo < starts[i] + n:
+                seq[lo - starts[i] : hi - starts[i]] = ord("N")
+        records.append((b"chr%d synthetic" % (i + 1), seq.tobytes()))
+        del seq
+    return records, sorted(runs + seps)
+
+
+def write_fasta_blocks(path: Path, records) -> None:
+    """A FASTA of LINE_BP-base lines, written a block of lines at a time."""
+    import numpy as np
+
+    block = LINE_BP << 20
+    with open(path, "wb") as fh:
+        for name, seq in records:
+            fh.write(b">" + name + b"\n")
+            for a in range(0, len(seq), block):
+                chunk = np.frombuffer(seq, np.uint8, min(block, len(seq) - a), a)
+                full = chunk.size // LINE_BP * LINE_BP
+                lines = np.empty((full // LINE_BP, LINE_BP + 1), np.uint8)
+                lines[:, :LINE_BP] = chunk[:full].reshape(-1, LINE_BP)
+                lines[:, LINE_BP] = ord("\n")
+                fh.write(lines.tobytes())
+                if full < chunk.size:
+                    fh.write(chunk[full:].tobytes() + b"\n")
+
+
+def valid_windows(length: int, runs, k: int) -> int:
+    """k-mer windows of a genome of `length` codes that touch no run."""
+    n, prev = 0, 0
+    for lo, hi in list(runs) + [(length, length)]:
+        n += max(lo - prev - k + 1, 0)
+        prev = hi
+    return n
+
+
+@contextlib.contextmanager
+def sketch_calls():
+    """Record (wall seconds, last_stage_times) of each Sketcher.sketch_files
+    call made inside the block."""
+    from hypergen_tpu_torch.models import sketcher as sm
+
+    calls, orig = [], sm.Sketcher.sketch_files
+
+    def timed(self, *a, **kw):
+        t0 = time.monotonic()
+        out = orig(self, *a, **kw)
+        calls.append((time.monotonic() - t0, dict(self.last_stage_times)))
+        return out
+
+    sm.Sketcher.sketch_files = timed
+    try:
+        yield calls
+    finally:
+        sm.Sketcher.sketch_files = orig
+
+
+def stage_text(label: str, wall: float, stages: dict) -> str:
+    total = sum(stages.values())
+    return (f"stage times, {label}: " + ", ".join(
+        f"{k} {v * 1e3:.3f} ms"
+        for k, v in sorted(stages.items(), key=lambda kv: -kv[1]))
+        + f"; sum {total * 1e3:.3f} ms of the sketch_files wall "
+          f"{wall * 1e3:.3f} ms ({total / wall:.3f})")
+
+
+def host_peak_gib() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def p4_genome(torch, tmp: Path) -> dict:
+    """Phase 14, part 1: a 2,181,038,080 bp genome (2^31 + 2^25) through the
+    CLI (the tiled route on one card, seqpar on several), the tiled route
+    called directly, and seqpar over the parsed genome's codes, each held
+    to a reference that needs no run list: seqpar over [cuda:0] x 8 on the
+    codes that codes_from_records makes from the records in memory (K2
+    counts the runs from the codes). Every route's numbers are printed
+    before any check. Returns the K1 and K2 launches of the CLI run."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from hypergen_tpu_torch import SketchParams
+    from hypergen_tpu_torch.io.fastx import (
+        codes_from_packed, codes_from_records, read_genome_packed,
+    )
+    from hypergen_tpu_torch.io.sketch_db import load_sketch
+    from hypergen_tpu_torch.models import sketcher as sm
+    from hypergen_tpu_torch.ops.kernels.hash_kernel import (
+        hash_chunks, hash_packed_rows,
+    )
+    from hypergen_tpu_torch.parallel.seqpar import sketch_codes_seqpar
+
+    d = tmp / "p4"
+    d.mkdir()
+    need = P4_BP * (LINE_BP + 1) // LINE_BP + (1 << 30)
+    free = shutil.disk_usage(d).free
+    check(free >= need, f"phase 14 needs {need} B free in {d}, has {free}")
+    p = SketchParams()
+    card = torch.device(DEVICE, 0)
+    cards = torch.cuda.device_count()
+    t0 = time.monotonic()
+    records, runs = p4_genome_records(SEED + 14)
+    codes = codes_from_records(records)
+    make_s = time.monotonic() - t0
+    length = codes.shape[0]
+    expect = valid_windows(length, runs, p.ksize) / p.scaled
+    path = d / "maize_sized.fna"
+    t0 = time.monotonic()
+    write_fasta_blocks(path, records)
+    write_s = time.monotonic() - t0
+    del records
+    phase(14, f"{P4_BP} bp in {len(P4_RECORDS)} records ({length} codes), "
+              f"{len(runs)} invalid runs (largest end {runs[-1][1]}): made "
+              f"in {make_s:.3f} s, FASTA of {path.stat().st_size} B written "
+              f"in {write_s:.3f} s")
+    results = {}
+
+    def route(key, name, fn):
+        hash_packed_rows.launches = hash_chunks.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        launches = (hash_packed_rows.launches, hash_chunks.launches)
+        results[key] = (name, res, launches)
+        phase(14, f"{name}: {secs:.3f} s; n_hashes {res['n_hashes']}, norm2 "
+                  f"{res['norm2']}; launches K1 {launches[0]}, K2 "
+                  f"{launches[1]}")
+
+    route("reference", f"reference: seqpar on [cuda:0] x {P4_SEQPAR_SHARDS}, "
+          f"codes from the records in memory",
+          lambda: sketch_codes_seqpar(codes, p, [card] * P4_SEQPAR_SHARDS))
+    ref = results["reference"][1]
+    t0 = time.monotonic()
+    g = read_genome_packed(path)
+    parse_s = time.monotonic() - t0
+    phase(14, f"read_genome_packed: {parse_s:.3f} s; runs {g.runs.dtype} "
+              f"{tuple(g.runs.shape)}, largest end {int(g.runs[:, 1].max())}")
+    parsed_codes = codes_from_packed(g)
+    same_codes = np.array_equal(parsed_codes, codes)
+    del codes
+    route("seqpar_parsed", f"seqpar on [cuda:0] x {P4_SEQPAR_SHARDS}, codes "
+          f"from the parsed runs (codes equal: {same_codes})",
+          lambda: sketch_codes_seqpar(parsed_codes, p,
+                                      [card] * P4_SEQPAR_SHARDS))
+    del parsed_codes
+    sk = sm.Sketcher(p, device=DEVICE)
+    route("tiled", "sketch_packed_tiled", lambda: sk.sketch_packed_tiled(g))
+    runs_ok = (g.runs.dtype == np.int64
+               and g.runs.tolist() == [list(r) for r in runs])
+    del g
+
+    # the CLI, with its huge-genome result kept for n_hashes (the .sketch
+    # holds hv and norm2 only)
+    seen = []
+    orig = sm.Sketcher._sketch_huge
+    sm.Sketcher._sketch_huge = lambda self, g: seen.append(orig(self, g)) \
+        or seen[-1]
+    out = d / "big.sketch"
+    try:
+        with sketch_calls() as calls:
+            route("cli", f"CLI sketch -D {DEVICE} ({cards} card(s); FASTA "
+                  f"parse included)",
+                  lambda: run_cli(["sketch", "-p", str(d), "-o", str(out),
+                                   "-D", DEVICE]) and seen[-1])
+    finally:
+        sm.Sketcher._sketch_huge = orig
+        path.unlink()
+    phase(14, stage_text(f"{P4_BP} bp genome, CLI", *calls[-1]))
+    (fs,) = load_sketch(out)
+    cli_launches = results["cli"][2]
+    on = ("seqpar" if cli_launches[1] else
+          "the one-row batch" if cli_launches[0] == 1 else "tiles")
+    n_tiles = -(-(length - p.ksize + 1) // (sk.seqpar_min_chunks // 8 * sk.C))
+    want = (0, cards) if cards > 1 else (-(-n_tiles // sk.batch), 0)
+    phase(14, f"the CLI took {on}; host peak resident {host_peak_gib():.2f} "
+              f"GiB")
+
+    check(cli_launches == want, f"CLI launches (K1, K2) {cli_launches}, want "
+                                f"{want} ({n_tiles} tiles)")
+    check(runs_ok, "read_genome_packed: the runs are not the int64 runs "
+                   "of the genome")
+    check(same_codes, "codes_from_packed != codes_from_records")
+    check(np.array_equal(fs.decompress(), ref["hv"])
+          and fs.hv_norm_2 == ref["norm2"], "CLI .sketch != the reference")
+    for name, res, _ in results.values():
+        check(np.array_equal(res["hv"], ref["hv"])
+              and res["norm2"] == ref["norm2"]
+              and res["n_hashes"] == ref["n_hashes"],
+              f"{name} != the reference")
+    check(ref["hv"].shape == (p.hv_d,)
+          and abs(ref["n_hashes"] / expect - 1) < 0.01,
+          f"{ref['n_hashes']} hashes, expected ~{expect:.0f}")
+    phase(14, f"every route equals the reference: hv, norm2, n_hashes "
+              f"{ref['n_hashes']} (expected ~{expect:.0f} = valid windows "
+              f"/ {p.scaled}); the CLI's .sketch too")
+    return {key: launches for key, (_, _, launches) in results.items()}
+
+
+def stage_table(torch, tmp: Path, genomes) -> None:
+    """Phase 14, part 2: HG_STAGE_TIMING=1 on the CLI sketch of phase 5's
+    16 genomes and of phase 9's 2^27 bp genome: each one's last_stage_times
+    as one line, the stages' sum within STAGE_SUM_TOLERANCE of the
+    sketch_files wall, the .sketch bytes equal to the run without the
+    switch; then one HG_TRACE_DIR run of the 16 genomes, whose trace must
+    name K1."""
+    import collections
+    import os
+
+    from hypergen_tpu_torch.ops.kernels.hash_kernel import hash_packed_rows
+
+    cells = tmp / "stage16"
+    cells.mkdir()
+    for g in genomes:
+        (cells / Path(g).name).symlink_to(g)
+    with sketch_calls() as calls:
+        for label, src in (("16 x 4.19 Mbp genomes (phase 5)", cells),
+                           (f"{HUGE_BP} bp genome (phase 9)", tmp / "huge")):
+            sketches = []
+            for switch in ("", "1"):
+                os.environ["HG_STAGE_TIMING"] = switch
+                out = tmp / f"stage_{src.name}_{switch or 'off'}.sketch"
+                run_cli(["sketch", "-p", str(src), "-o", str(out), "-D",
+                         DEVICE])
+                sketches.append(out.read_bytes())
+            os.environ.pop("HG_STAGE_TIMING")
+            wall, stages = calls[-1]
+            total = sum(stages.values())
+            phase(14, stage_text(label, wall, stages))
+            check(sketches[0] == sketches[1],
+                  f"{label}: .sketch bytes differ with HG_STAGE_TIMING")
+            check(abs(total / wall - 1) <= STAGE_SUM_TOLERANCE,
+                  f"{label}: the stages sum to {total:.4f} s of a "
+                  f"{wall:.4f} s wall")
+            for stage in ("hash", "compact", "distinct", "encode"):
+                check(stages.get(stage, 0) > 0, f"{label}: no {stage} time")
+
+    trace_dir = tmp / "trace"
+    os.environ["HG_TRACE_DIR"] = str(trace_dir)
+    hash_packed_rows.launches = 0
+    try:
+        run_cli(["sketch", "-p", str(cells), "-o", str(tmp / "traced.sketch"),
+                 "-D", DEVICE])
+    finally:
+        os.environ.pop("HG_TRACE_DIR")
+    launches = hash_packed_rows.launches
+    (trace,) = trace_dir.iterdir()
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "rolling_packed_kernel" in e.get("name", "")]
+    check(k1, f"the trace {trace.name} names no K1 launch")
+    top = collections.Counter(e["name"][:60] for e in kernels).most_common(4)
+    phase(14, f"HG_TRACE_DIR: {trace.name}, {trace.stat().st_size} B, "
+              f"{len(events)} events, {len(kernels)} kernel events, {len(k1)} "
+              f"of them K1 ({sum(e.get('dur', 0) for e in k1):.1f} us; K1 "
+              f"launches by its counter {launches}); most frequent kernels "
+              f"{top}")
+
+
+
 def main() -> None:
+    t_start = time.monotonic()
     import torch
 
     # 1. the device
@@ -1540,11 +1852,16 @@ def main() -> None:
         # per card, on phase 12's files
         pod(torch, Path(tmp), one_proc)
 
+        # 14. the stage table on the card, and a genome above 2^31 bp
+        stage_table(torch, Path(tmp), genomes)
+        p4 = p4_genome(torch, Path(tmp))
+
     check("jax" not in sys.modules, "jax was imported")
     leaked = sorted(m for m in sys.modules if m.startswith("hypergen_tpu")
                     and not m.startswith("hypergen_tpu_torch"))
     check(not leaked, f"modules of the JAX package were imported: {leaked}")
-    phase(11, "imports: no jax, nothing of hypergen_tpu")
+    phase(11, f"imports: no jax, nothing of hypergen_tpu; the script took "
+              f"{time.monotonic() - t_start:.1f} s")
     k1_one = huge["k1_one_row"]
     k2 = huge["k2"]
     print(json.dumps({"kernels": [{
@@ -1555,6 +1872,7 @@ def main() -> None:
         "wrapper_ms": k1_wrapper_ms, "plain_ms": plain_ms,
         "bound_ms": k1_b[0], "bound_by": k1_b[1], "library_ms": None,
         "one_row": {"shape": "1 x 1024 chunks (2^27 bp)", **k1_one},
+        "launches_2_31": {k: v[0] for k, v in p4.items()},
     }, {
         "name": "hash_chunks", "route": "cuda", "source": SOURCE,
         "replaces": K2_REPLACES, "launches": huge["k2_launches"],
@@ -1563,6 +1881,7 @@ def main() -> None:
         "wrapper_ms": k2["wrapper_ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": None,
+        "launches_2_31": {k: v[1] for k, v in p4.items()},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -8,7 +8,10 @@ the outputs are byte-identical to ``python -m hypergen_tpu.cli ... -D cpu``:
   hist   -r REF                                      (value\tcount)
 ``-D cuda`` (the default) runs on the CUDA cards (`search` on all of them,
 the rest on the first) and fails when there is none; ``-D cpu`` runs the
-plain PyTorch versions of the kernels.
+plain PyTorch versions of the kernels. ``HG_TRACE_DIR=DIR`` wraps the
+command in a ``torch.profiler`` trace written under DIR (one file for each
+process of a pod); ``HG_STAGE_TIMING=1`` logs the sketch's per-stage times
+(``Sketcher.sketch_files``).
 
 A pod (several processes, ``parallel.mesh``: the ``HG_*`` variables or
 ``torchrun`` with ``HG_DIST=1``) runs the JAX CLI's pod paths, each process
@@ -26,6 +29,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import sys
 import time
 from pathlib import Path
@@ -35,6 +39,7 @@ import numpy as np
 from hypergen_tpu_torch import params as P
 from hypergen_tpu_torch.params import DistParams, SketchParams
 from hypergen_tpu_torch.utils.logging import setup_logging
+from hypergen_tpu_torch.utils.timing import maybe_profile
 
 log = logging.getLogger("hypergen")
 
@@ -541,16 +546,19 @@ def main(argv=None) -> None:
     # every pod branch below would run as N one-process runs
     from hypergen_tpu_torch.parallel import mesh
 
-    owned = mesh.maybe_init_distributed(getattr(args, "device", "cpu"))
+    device = getattr(args, "device", "cpu")
+    owned = mesh.maybe_init_distributed(device)
     try:
-        if args.mode == P.CMD_SKETCH:
-            run_sketch(args)
-        elif args.mode == P.CMD_DIST:
-            run_dist(args)
-        elif args.mode == P.CMD_SEARCH:
-            run_search(args)
-        elif args.mode == "hist":
-            run_hist(args)
+        with maybe_profile(os.environ.get("HG_TRACE_DIR", ""),
+                           cuda=device == "cuda"):
+            if args.mode == P.CMD_SKETCH:
+                run_sketch(args)
+            elif args.mode == P.CMD_DIST:
+                run_dist(args)
+            elif args.mode == P.CMD_SEARCH:
+                run_search(args)
+            elif args.mode == "hist":
+                run_hist(args)
     finally:
         if owned:
             mesh.finalize()

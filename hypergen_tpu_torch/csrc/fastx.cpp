@@ -159,10 +159,11 @@ void hg_free(uint8_t* p) { free(p); }
 // copy). Returns the genome length in codes (n), with ceil(n/4) bytes in
 // *packed_out (2-bit fields little-endian within each byte; invalid
 // positions carry code&3 — validity comes solely from the run list) and
-// *n_runs_out [start,end) int32 pairs in *runs_out covering every invalid
-// position in [0, n). -1 on error. Caller frees both with hg_free.
+// *n_runs_out [start,end) int64 pairs in *runs_out covering every invalid
+// position in [0, n) (int64: a genome may hold 2^31 codes or more). -1 on
+// error. Caller frees both with hg_free.
 long long hg_read_genome_packed(const char* path, uint8_t** packed_out,
-                                int32_t** runs_out, long long* n_runs_out,
+                                int64_t** runs_out, long long* n_runs_out,
                                 char* errbuf, int errlen) {
   *packed_out = nullptr;
   *runs_out = nullptr;
@@ -175,7 +176,7 @@ long long hg_read_genome_packed(const char* path, uint8_t** packed_out,
   gzbuffer(f, 1 << 20);
 
   Buf packed;
-  Buf runs;  // raw bytes holding int32 pairs
+  Buf runs;  // raw bytes holding int64 pairs
   uint8_t* chunk = static_cast<uint8_t*>(malloc(CHUNK));
   if (!chunk) {
     gzclose(f);
@@ -196,11 +197,11 @@ long long hg_read_genome_packed(const char* path, uint8_t** packed_out,
     bool inv = code >= INVALID;
     if (inv && run_start < 0) run_start = n;
     if (!inv && run_start >= 0) {
-      if (!runs.reserve(8)) return false;
-      int32_t* r = reinterpret_cast<int32_t*>(runs.data + runs.len);
-      r[0] = static_cast<int32_t>(run_start);
-      r[1] = static_cast<int32_t>(n);
-      runs.len += 8;
+      if (!runs.reserve(16)) return false;
+      int64_t* r = reinterpret_cast<int64_t*>(runs.data + runs.len);
+      r[0] = static_cast<int64_t>(run_start);
+      r[1] = static_cast<int64_t>(n);
+      runs.len += 16;
       run_start = -1;
     }
     cur = static_cast<uint8_t>(cur | ((code & 3) << (2 * (n & 3))));
@@ -257,12 +258,12 @@ long long hg_read_genome_packed(const char* path, uint8_t** packed_out,
   }
   if (ok && (n & 3) != 0) ok = packed.push(cur);  // flush partial byte
   if (ok && run_start >= 0) {                     // close trailing run
-    ok = runs.reserve(8);
+    ok = runs.reserve(16);
     if (ok) {
-      int32_t* r = reinterpret_cast<int32_t*>(runs.data + runs.len);
-      r[0] = static_cast<int32_t>(run_start);
-      r[1] = static_cast<int32_t>(n);
-      runs.len += 8;
+      int64_t* r = reinterpret_cast<int64_t*>(runs.data + runs.len);
+      r[0] = static_cast<int64_t>(run_start);
+      r[1] = static_cast<int64_t>(n);
+      runs.len += 16;
     } else {
       err = "out of memory";
     }
@@ -276,62 +277,9 @@ long long hg_read_genome_packed(const char* path, uint8_t** packed_out,
     return -1;
   }
   *packed_out = packed.data;
-  *runs_out = reinterpret_cast<int32_t*>(runs.data);
-  *n_runs_out = static_cast<long long>(runs.len / 8);
+  *runs_out = reinterpret_cast<int64_t*>(runs.data);
+  *n_runs_out = static_cast<long long>(runs.len / 16);
   return n;
-}
-
-// Pack base codes to the device input format: 2-bit codes (4 per byte,
-// little-endian within the byte) + invalid-run list [(start, end), ...].
-// codes beyond n (up to padded_len) are treated as invalid padding.
-// Returns the TRUE number of invalid runs; only min(n_runs, runs_cap)
-// entries are written to runs (caller falls back to a dense mask if the
-// cap was exceeded — packing itself is always complete and exact).
-// padded_len must be a multiple of 4; packed2 must hold padded_len/4 bytes.
-long long hg_pack_codes(const uint8_t* codes, long long n,
-                        long long padded_len, uint8_t* packed2,
-                        int32_t* runs, long long runs_cap) {
-  if (n > padded_len) n = padded_len;
-  const long long nb = padded_len / 4;
-  const long long full = n / 4;  // byte index below which all 4 codes real
-  for (long long b = 0; b < full; b++) {
-    const uint8_t* c = codes + 4 * b;
-    packed2[b] = static_cast<uint8_t>((c[0] & 3) | ((c[1] & 3) << 2) |
-                                      ((c[2] & 3) << 4) | ((c[3] & 3) << 6));
-  }
-  for (long long b = full; b < nb; b++) {
-    uint8_t v = 0;
-    for (int j = 0; j < 4; j++) {
-      long long i = 4 * b + j;
-      uint8_t code = (i < n) ? codes[i] : INVALID;
-      v = static_cast<uint8_t>(v | ((code & 3) << (2 * j)));
-    }
-    packed2[b] = v;
-  }
-  // invalid-run extraction (tail padding merged into a trailing run)
-  long long n_runs = 0;
-  long long run_start = -1;
-  for (long long i = 0; i < n; i++) {
-    bool inv = codes[i] >= INVALID;
-    if (inv && run_start < 0) run_start = i;
-    if (!inv && run_start >= 0) {
-      if (n_runs < runs_cap) {
-        runs[2 * n_runs] = static_cast<int32_t>(run_start);
-        runs[2 * n_runs + 1] = static_cast<int32_t>(i);
-      }
-      n_runs++;
-      run_start = -1;
-    }
-  }
-  if (run_start < 0 && n < padded_len) run_start = n;  // pure-padding run
-  if (run_start >= 0) {
-    if (n_runs < runs_cap) {
-      runs[2 * n_runs] = static_cast<int32_t>(run_start);
-      runs[2 * n_runs + 1] = static_cast<int32_t>(padded_len);
-    }
-    n_runs++;
-  }
-  return n_runs;
 }
 
 }  // extern "C"

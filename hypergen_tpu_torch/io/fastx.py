@@ -145,8 +145,10 @@ class PackedGenome:
 
     packed2: uint8 [ceil(length/4)] — 2-bit codes, little-endian per byte;
       bits of invalid positions are arbitrary (validity is runs-only).
-    runs: int32 [R, 2] — maximal [start, end) runs of invalid positions
-      within [0, length).
+    runs: int64 [R, 2] — maximal [start, end) runs of invalid positions
+      within [0, length); int64 because a genome may hold 2^31 codes or
+      more (the routes cast to int32 per tile or batch, where the
+      coordinates are below 2^31).
     length: genome length in codes (bases + record separators).
     """
 
@@ -168,7 +170,7 @@ def pack2bit(codes: np.ndarray) -> np.ndarray:
 
 
 def invalid_runs(codes: np.ndarray) -> np.ndarray:
-    """Maximal [start, end) runs of invalid positions: int32 [R, 2]."""
+    """Maximal [start, end) runs of invalid positions: int64 [R, 2]."""
     inv = codes >= INVALID
     flips = np.flatnonzero(np.diff(inv))
     bounds = np.empty(flips.size + 2, dtype=np.int64)
@@ -178,7 +180,7 @@ def invalid_runs(codes: np.ndarray) -> np.ndarray:
     first_inv = 0 if (inv.size and inv[0]) else 1
     starts = bounds[first_inv:-1:2]
     ends = bounds[first_inv + 1 :: 2]
-    return np.stack([starts, ends], axis=1).astype(np.int32)
+    return np.stack([starts, ends], axis=1)
 
 
 def packed_from_codes(codes: np.ndarray) -> PackedGenome:

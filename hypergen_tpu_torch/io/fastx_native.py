@@ -52,7 +52,7 @@ def _load_locked():
     lib.hg_read_genome_packed.argtypes = [
         ctypes.c_char_p,
         ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
-        ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
         ctypes.POINTER(ctypes.c_longlong),
         ctypes.c_char_p,
         ctypes.c_int,
@@ -79,7 +79,7 @@ def read_genome_codes(path) -> np.ndarray:
 
 
 def read_genome_packed(path):
-    """Fused native parse+pack: (packed2 u8 [ceil(n/4)], runs i32 [R, 2], n).
+    """Fused native parse+pack: (packed2 u8 [ceil(n/4)], runs i64 [R, 2], n).
 
     One streaming C pass over the FASTA bytes — no intermediate 4x-size
     code array (csrc/fastx.cpp hg_read_genome_packed). Validity of
@@ -88,7 +88,7 @@ def read_genome_packed(path):
     """
     lib = _load()
     packed_p = ctypes.POINTER(ctypes.c_uint8)()
-    runs_p = ctypes.POINTER(ctypes.c_int32)()
+    runs_p = ctypes.POINTER(ctypes.c_int64)()
     n_runs = ctypes.c_longlong(0)
     errbuf = ctypes.create_string_buffer(256)
     n = lib.hg_read_genome_packed(
@@ -105,7 +105,7 @@ def read_genome_packed(path):
         )
         runs = (
             np.ctypeslib.as_array(runs_p, shape=(n_runs.value, 2)).copy()
-            if n_runs.value else np.zeros((0, 2), np.int32)
+            if n_runs.value else np.zeros((0, 2), np.int64)
         )
     finally:
         if packed_p:

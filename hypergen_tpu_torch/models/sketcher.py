@@ -35,7 +35,9 @@ once (``sketch_packed_tiled``).
 from __future__ import annotations
 
 import collections
+import contextlib
 import logging
+import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -45,6 +47,7 @@ import torch
 from hypergen_tpu_torch.io.fastx import (
     PackedGenome,
     codes_from_packed,
+    packed_from_codes,
     read_genome_packed,
 )
 from hypergen_tpu_torch.io.sketch_db import FileSketch
@@ -55,11 +58,13 @@ from hypergen_tpu_torch.ops.kernels.hash_kernel import (
     MAX_POSITIONS,
     hash_packed_rows,
 )
+from hypergen_tpu_torch.utils.timing import SketchTimer
 
 log = logging.getLogger("hypergen")
 
-# start of a padding run row: no window end reaches it, since every
-# genome has fewer than 2^31 codes (Sketcher._one_row_fits)
+# start of a padding run row: no window end reaches it, since every row of
+# a batch (a genome or a tile) has fewer than 2^31 codes
+# (Sketcher._one_row_fits, Sketcher._tile_genome)
 _NO_RUN = np.int32(0x7FFFFFFF)
 ENCODE_BLOCK = 512  # hashes per encode block: bounds the [B, n, D] bit tensor
 
@@ -170,6 +175,15 @@ class Sketcher:
         self.cell_cap = int(
             min(max(4, -(-8 * self.lsub // max(params.scaled, 1))), self.lsub)
         )
+        self._timer: Optional[SketchTimer] = None  # set inside sketch_files
+        self.last_stage_times: Dict[str, float] = {}
+
+    def _stage(self, name: str, device: bool = False):
+        """A span of sketch_files' stage timer (device=True: timed on the
+        device's stream); nothing outside sketch_files."""
+        if self._timer is None:
+            return contextlib.nullcontext()
+        return self._timer.stage(name, device)
 
     def _bucket(self, L: int) -> int:
         """Chunks per row for a genome of L codes: a power of two."""
@@ -181,8 +195,18 @@ class Sketcher:
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Host inputs for one step: (packed words int32 [B, W] holding u32
         bits, as K1 takes them; invalid runs int32 [B, R, 2] padded to the
-        batch's largest run count; k-mer counts n_pos int32 [B])."""
+        batch's largest run count; k-mer counts n_pos int32 [B]).
+
+        The one place where runs become int32: a run coordinate at or above
+        2^31 raises (the router sends no such genome here; a tile's runs
+        are in tile coordinates)."""
         k = self.params.ksize
+        for g in genomes:
+            if g.runs.size and int(g.runs.max()) > _NO_RUN:
+                raise ValueError(
+                    f"invalid run up to {int(g.runs.max())} in a batch row: "
+                    f"run coordinates must be below 2^31 (tile the genome)"
+                )
         W = packed_row_words(n_chunks, self.C)
         buf = np.zeros((len(genomes), W * 4), dtype=np.uint8)
         R = max([1] + [g.runs.shape[0] for g in genomes])
@@ -220,27 +244,33 @@ class Sketcher:
         """The K1 step up to the distinct set: (sorted h int64 [B, N],
         first-occurrence mask bool [B, N]) on the device, for genomes that
         fit in n_chunks chunks."""
-        words, runs, n_pos = (
-            torch.from_numpy(a).to(self.device)
-            for a in self._prepare_batch(genomes, n_chunks)
-        )
-        h, pos, valid = self._hash(words, n_pos, n_chunks)
-        (h, pos), counts = compact_masked(valid, h, pos)
-        filled = torch.arange(h.shape[1], device=h.device) < counts[:, None]
-        clean = filled & filter_positions_by_runs(pos, runs, self.params.ksize)
-        return distinct_hashes(h, clean)
+        with self._stage("pack"):
+            host = self._prepare_batch(genomes, n_chunks)
+        with self._stage("upload", device=True):
+            words, runs, n_pos = (torch.from_numpy(a).to(self.device)
+                                  for a in host)
+        with self._stage("hash", device=True):
+            h, pos, valid = self._hash(words, n_pos, n_chunks)
+        with self._stage("compact", device=True):
+            (h, pos), counts = compact_masked(valid, h, pos)
+            filled = torch.arange(h.shape[1], device=h.device) < counts[:, None]
+            clean = filled & filter_positions_by_runs(
+                pos, runs, self.params.ksize)
+        with self._stage("distinct", device=True):
+            return distinct_hashes(h, clean)
 
     def _encode(self, hs: torch.Tensor, first: torch.Tensor
                 ) -> List[Dict[str, object]]:
         """Encode each row's distinct hashes: per row {"hv": int16 [D]
         numpy, "norm2": int, "n_hashes": int}."""
-        hv16 = hv_to_i16(
-            encode_hv(hs, first, self.params.hv_d, block=ENCODE_BLOCK)
-        )
-        norm2 = hv_norm2_i32(hv16)
-        hv16, norm2, n_hashes = (
-            t.cpu().numpy() for t in (hv16, norm2, first.sum(dim=-1))
-        )
+        with self._stage("encode", device=True):
+            hv16 = hv_to_i16(
+                encode_hv(hs, first, self.params.hv_d, block=ENCODE_BLOCK)
+            )
+            norm2 = hv_norm2_i32(hv16)
+            hv16, norm2, n_hashes = (
+                t.cpu().numpy() for t in (hv16, norm2, first.sum(dim=-1))
+            )
         return [
             {"hv": hv16[i], "norm2": int(norm2[i]),
              "n_hashes": int(n_hashes[i])}
@@ -266,18 +296,21 @@ class Sketcher:
         disjoint k-mer start range [t*TC, (t+1)*TC) plus the k-1 halo.
         Tile t has length n_pos_t + k - 1, a byte-aligned packed2 slice
         (TC % 4 == 0), and its parent's runs clipped and shifted into tile
-        coordinates."""
+        coordinates: clipped in int64 (a genome may hold 2^31 codes or
+        more), then int32, since a tile's coordinates are at most its
+        length TC + k - 1."""
         k = self.params.ksize
         TC = tile_chunks * self.C
         total_pos = max(g.length - k + 1, 0)
         n_tiles = max(-(-total_pos // TC), 1)
+        runs = g.runs.astype(np.int64, copy=False)
         tiles = []
         for t in range(n_tiles):
             start = t * TC
             L_t = min(total_pos - start, TC) + k - 1
             p2 = g.packed2[start // 4 : start // 4 + -(-L_t // 4)]
-            lo = np.clip(g.runs[:, 0] - start, 0, L_t)
-            hi = np.clip(g.runs[:, 1] - start, 0, L_t)
+            lo = np.clip(runs[:, 0] - start, 0, L_t)
+            hi = np.clip(runs[:, 1] - start, 0, L_t)
             keep = hi > lo
             runs_t = np.stack([lo[keep], hi[keep]], axis=-1).astype(np.int32)
             tiles.append(PackedGenome(p2, runs_t, L_t))
@@ -325,20 +358,32 @@ class Sketcher:
         free, _ = torch.cuda.mem_get_info(self.device)
         return 2 * self._one_row_bytes(n_chunks) + ONE_ROW_RESERVE <= free
 
-    def _sketch_huge(self, g: PackedGenome) -> Dict[str, object]:
-        """A genome at or above seqpar_min_chunks. On a CUDA device it runs
-        as a one-row batch where that fits (``_one_row_fits``: the fastest
-        route on the H100); above that it is split over seqpar_devices when
-        they are several cards, else tiled on this device. On the CPU it is
-        tiled, as the JAX package routes it."""
+    def _huge_route(self, g: PackedGenome) -> Tuple[str, list]:
+        """(route, cards) of a huge genome; see _sketch_huge."""
         if self.device.type == "cuda":
             if self._one_row_fits(g.length):
-                return self.sketch_batch([g])[0]
+                return "one_row", []
             cards = self.seqpar_devices
             if cards is None:
                 cards = [torch.device("cuda", i)
                          for i in range(torch.cuda.device_count())]
             if len(cards) > 1:
+                return "seqpar", cards
+        return "tiled", []
+
+    def _sketch_huge(self, g: PackedGenome) -> Dict[str, object]:
+        """A genome at or above seqpar_min_chunks. On a CUDA device it runs
+        as a one-row batch where that fits (``_one_row_fits``: the fastest
+        route on the H100); above that it is split over seqpar_devices when
+        they are several cards, else tiled on this device. On the CPU it is
+        tiled, as the JAX package routes it. In sketch_files the route is
+        the span ``huge:<route>``, charged with what its steps' own spans
+        do not cover."""
+        route, cards = self._huge_route(g)
+        with self._stage(f"huge:{route}"):
+            if route == "one_row":
+                return self.sketch_batch([g])[0]
+            if route == "seqpar":
                 # imported here: seqpar imports this module
                 from hypergen_tpu_torch.parallel.seqpar import (
                     sketch_codes_seqpar,
@@ -348,7 +393,22 @@ class Sketcher:
                     codes_from_packed(g), self.params, cards,
                     chunk_positions=self.C,
                 )
-        return self.sketch_packed_tiled(g)
+            return self.sketch_packed_tiled(g)
+
+    def sketch_codes(self, codes: np.ndarray) -> Dict[str, object]:
+        """Sketch one genome given flat base codes (uint8 0-3, INVALID = 4):
+        {"hv": int16 [D] numpy, "norm2": int, "n_hashes": int}. It is
+        packed (``packed_from_codes``) and routed as sketch_files routes a
+        genome: one batch below seqpar_min_chunks, _sketch_huge at or
+        above it."""
+        g = packed_from_codes(np.asarray(codes, dtype=np.uint8))
+        if self._bucket(g.length) >= self.seqpar_min_chunks:
+            return self._sketch_huge(g)
+        return self.sketch_batch([g])[0]
+
+    def sketch_file(self, path) -> FileSketch:
+        """The FileSketch of one genome file: sketch_files([path])[0]."""
+        return self.sketch_files([path], progress=False)[0]
 
     def _to_filesketch(self, res: Dict[str, object], name: str) -> FileSketch:
         p = self.params
@@ -364,49 +424,73 @@ class Sketcher:
             file_str=name, hv=np.asarray(res["hv"], dtype=np.int16),
         )
 
-    def sketch_files(self, paths: Sequence) -> List[FileSketch]:
+    def sketch_files(
+        self,
+        paths: Sequence,
+        progress: bool = True,
+        io_threads: int = 0,
+        read_ahead: int = 0,
+    ) -> List[FileSketch]:
         """Sketch many genome files, in input order.
 
-        Files are parsed in a thread pool through a bounded read-ahead
-        window (8x batch), so memory stays bounded for any folder.
-        Same-bucket genomes within the window are grouped into batches;
-        partial groups run at the end.
+        Files are parsed in a pool of io_threads threads (0: min(threads,
+        16), at least 1) through a bounded read-ahead window of read_ahead
+        files (0: max(8 x batch, 2 x io_threads)), so memory stays bounded
+        for any folder. Same-bucket genomes within the window are grouped
+        into batches; partial groups run at the end. progress=False turns
+        the progress bar off.
+
+        Each call times its stages (utils.timing.SketchTimer): the totals
+        in seconds land in ``last_stage_times``, and with HG_STAGE_TIMING
+        set the table is logged at INFO. ``io_pool`` is the I/O pool's own
+        time (submitting parses, which starts its threads, and its
+        shutdown), ``fasta_read`` the wait on a parse. On a CUDA device the device
+        stages are timed by CUDA events on its stream, read after the
+        path's last wait for the device; the host stages by the clock.
         """
         from hypergen_tpu_torch.utils.progress import ProgressBar
 
         paths = list(paths)
-        pb = ProgressBar(len(paths))
-        io_threads = max(min(self.params.threads, 16), 1)
-        read_ahead = max(8 * self.batch, 2 * io_threads)
+        pb = ProgressBar(len(paths), enabled=progress)
+        io_threads = io_threads or max(min(self.params.threads, 16), 1)
+        read_ahead = read_ahead or max(8 * self.batch, 2 * io_threads)
         results: Dict[int, FileSketch] = {}
+        timer = self._timer = SketchTimer(self.device)
+
+        def finish(i: int, res: Dict[str, object]) -> None:
+            with timer.stage("compress"):
+                results[i] = self._to_filesketch(res, str(paths[i]))
+            pb.inc()
 
         def run(group: List[Tuple[int, PackedGenome]]) -> None:
             for (i, _), res in zip(group, self.sketch_batch([g for _, g in group])):
-                results[i] = self._to_filesketch(res, str(paths[i]))
-                pb.inc()
+                finish(i, res)
 
         by_bucket: Dict[int, List[Tuple[int, PackedGenome]]] = {}
-        with ThreadPoolExecutor(max_workers=io_threads) as pool:
-            pending = collections.deque()
-            it = iter(range(len(paths)))
+        pending = collections.deque()
+        it = iter(range(len(paths)))
+        pool = ThreadPoolExecutor(max_workers=io_threads)
 
-            def fill():
+        def fill():
+            # "io_pool": submitting parses; the pool starts a thread at each
+            # submit until it has io_threads
+            with timer.stage("io_pool"):
                 while len(pending) < read_ahead:
                     i = next(it, None)
                     if i is None:
                         return
                     pending.append((i, pool.submit(read_genome_packed, paths[i])))
 
+        try:
             fill()
             while pending:
                 i, fut = pending.popleft()
-                g = fut.result()
+                with timer.stage("fasta_read"):
+                    g = fut.result()
                 fill()
                 bucket = self._bucket(g.length)
                 if bucket >= self.seqpar_min_chunks:
-                    results[i] = self._to_filesketch(
-                        self._sketch_huge(g), str(paths[i]))
-                    pb.inc()
+                    finish(i, self._sketch_huge(g))
                     continue
                 by_bucket.setdefault(bucket, []).append((i, g))
                 if len(by_bucket[bucket]) >= self.batch:
@@ -415,5 +499,13 @@ class Sketcher:
                 group = by_bucket[bucket]
                 for j in range(0, len(group), self.batch):
                     run(group[j : j + self.batch])
+        finally:
+            with timer.stage("io_pool"):
+                pool.shutdown(wait=True)
+            self._timer = None
         pb.finish()
+        timer.resolve()
+        self.last_stage_times = dict(timer.totals)
+        if os.environ.get("HG_STAGE_TIMING"):
+            log.info("sketch stage timing:\n%s", timer.report())
         return [results[i] for i in range(len(paths))]

@@ -394,3 +394,80 @@ def test_cuda_pod_search_matches_sharded(cuda, tmp_path):
         for name, w in zip(("ani", "idx", "dot"), want):
             np.testing.assert_array_equal(got[name], w)
     np.testing.assert_array_equal(want[1][0, :3], [1, 4, 300])
+
+
+def _write_genomes(d, lengths, seed):
+    rng = np.random.default_rng(seed)
+    d.mkdir()
+    paths = []
+    for i, bp in enumerate(lengths):
+        seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=bp)]
+        seq[bp // 3 : bp // 3 + 40 + i] = ord("N")
+        paths.append(d / f"g{i}.fna")
+        paths[-1].write_bytes(b">g\n" + seq.tobytes() + b"\n")
+    return paths
+
+
+@pytest.mark.cuda
+def test_cuda_stage_timing_logs_device_stages(cuda, tmp_path, monkeypatch):
+    """HG_STAGE_TIMING on the card: the table names the device stages, each
+    timed above 0 by CUDA events (read from last_stage_times: the table
+    rounds to ms), and the .sketch bytes do not change."""
+    import logging
+
+    from hypergen_tpu_torch.cli import main
+
+    totals = []
+    orig = Sketcher.sketch_files
+
+    def spy(self, *a, **kw):
+        out = orig(self, *a, **kw)
+        totals.append(dict(self.last_stage_times))
+        return out
+
+    monkeypatch.setattr(Sketcher, "sketch_files", spy)
+
+    d = tmp_path / "g"
+    _write_genomes(d, [200_000, 150_000, 180_000], seed=71)
+    argv = ["sketch", "-p", str(d), "-D", "cuda"]
+    monkeypatch.delenv("HG_STAGE_TIMING", raising=False)
+    main(argv + ["-o", str(tmp_path / "off.sketch")])
+    monkeypatch.setenv("HG_STAGE_TIMING", "1")
+    seen = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    logger, handler = logging.getLogger("hypergen"), Keep()
+    logger.addHandler(handler)
+    try:
+        main(argv + ["-o", str(tmp_path / "on.sketch")])
+    finally:
+        logger.removeHandler(handler)
+    (msg,) = [m for m in seen if m.startswith("sketch stage timing:")]
+    logged = {ln.split(": ")[0] for ln in msg.splitlines()[1:]}
+    for stage in ("hash", "compact", "distinct", "encode"):
+        assert stage in logged and totals[-1][stage] > 0, (stage, msg)
+    assert ((tmp_path / "on.sketch").read_bytes()
+            == (tmp_path / "off.sketch").read_bytes())
+
+
+@pytest.mark.cuda
+def test_cuda_sketch_file_and_codes_match_cpu(cuda, tmp_path):
+    """sketch_file and sketch_codes on the card equal the same calls on the
+    CPU, for a batch genome and one that takes the huge-genome route."""
+    from hypergen_tpu_torch.io.fastx import codes_from_packed, read_genome_packed
+
+    p = SketchParams(scaled=40, hv_d=1024)
+    paths = _write_genomes(tmp_path / "g", [12_000, 60_000], seed=72)
+    for path in paths:
+        codes = codes_from_packed(read_genome_packed(path))
+        got, want = (Sketcher(p, device=dev, chunk_positions=2048,
+                              seqpar_min_chunks=16) for dev in (cuda, "cpu"))
+        a, b = got.sketch_file(path), want.sketch_file(path)
+        assert a.hv_norm_2 == b.hv_norm_2 and a.file_str == b.file_str
+        np.testing.assert_array_equal(a.decompress(), b.decompress())
+        a, b = got.sketch_codes(codes), want.sketch_codes(codes)
+        assert a["n_hashes"] == b["n_hashes"] > 0 and a["norm2"] == b["norm2"]
+        np.testing.assert_array_equal(a["hv"], b["hv"])
