@@ -35,10 +35,15 @@ and the 2^27 bp genome, checks that they cover the sketch's wall and leave
 its bytes unchanged and that an HG_TRACE_DIR trace names K1; then it
 sketches a 2,181,038,080 bp genome (2^31 + 2^25, N runs on both sides of
 2^31) through the CLI, the tiled route and seqpar over its parsed codes,
-each equal to seqpar over codes made from the records in memory. Every
-phase prints its lines; any failure raises and exits non-zero before the
-last line. The last two lines are the kernel table and the result, each
-one JSON object.
+each equal to seqpar over codes made from the records in memory. Phase 15
+drives the asynchronous sketch API: 8 batches submitted under
+torch.cuda.set_sync_debug_mode("error") and collected in reverse order,
+equal to phase 5's .sketch; a cell-cap and a compaction-width retry at
+collect, equal to the CPU; sketch_files of 128 genomes at pipeline_depth 1
+and 3, alternated, with wall, device busy time and idle share, the bytes
+identical. Every phase prints its lines; any failure raises and exits
+non-zero before the last line. The last two lines are the kernel table
+and the result, each one JSON object.
 """
 
 from __future__ import annotations
@@ -360,8 +365,9 @@ def main_path(torch, tmp: Path):
     genomes = write_genomes(gdir)
     db, tsv = tmp / "db.sketch", tmp / "ani.tsv"
     hash_packed_rows.launches = 0
-    sketch_s = run_cli(["sketch", "-p", str(gdir), "-o", str(db),
-                        "-D", DEVICE])
+    with sketch_calls() as calls:
+        sketch_s = run_cli(["sketch", "-p", str(gdir), "-o", str(db),
+                            "-D", DEVICE])
     dist_s = run_cli(["dist", "-r", str(db), "-q", str(db), "-o", str(tsv),
                       "-a", "85", "-D", DEVICE])
     launches = hash_packed_rows.launches
@@ -391,6 +397,8 @@ def main_path(torch, tmp: Path):
              f"({n / sketch_s:.3f} genomes/s); dist {pairs} pairs in "
              f"{dist_s:.3f} s ({pairs / dist_s:.1f} pairs/s); "
              f"{len(rows)} pairs >= 85; K1 launches {launches}")
+    phase(5, stage_text("the process's first sketch (CLI, pipeline_depth 3)",
+                        *calls[-1]))
     return genomes, launches
 
 
@@ -655,8 +663,9 @@ def huge_genome(torch, tmp: Path):
              f"{p.scaled})")
 
     # K1 at the one-row shape, on this genome's packed row
-    words, _, n_pos = sk._prepare_batch([g], n_chunks)
-    a1 = (torch.from_numpy(words).cuda(), torch.from_numpy(n_pos).cuda(),
+    host = sk._prepare_batch([g], n_chunks)
+    a1 = (torch.from_numpy(host.words).cuda(),
+          torch.from_numpy(host.n_pos).cuda(),
           n_chunks, CHUNK, p.ksize, p.seed, p.threshold)
     kw1 = dict(canonical=p.canonical, method=p.sketch_method,
                cells=sk.cells, cap=sk.cell_cap)
@@ -1553,17 +1562,21 @@ def valid_windows(length: int, runs, k: int) -> int:
 
 
 @contextlib.contextmanager
-def sketch_calls():
-    """Record (wall seconds, last_stage_times) of each Sketcher.sketch_files
-    call made inside the block."""
+def sketch_calls(depth=None):
+    """Record (wall seconds, last_stage_times, last_device_times) of each
+    Sketcher.sketch_files call made inside the block; depth: the
+    pipeline_depth every call runs at (None: the caller's)."""
     from hypergen_tpu_torch.models import sketcher as sm
 
     calls, orig = [], sm.Sketcher.sketch_files
 
     def timed(self, *a, **kw):
+        if depth is not None:
+            kw["pipeline_depth"] = depth
         t0 = time.monotonic()
         out = orig(self, *a, **kw)
-        calls.append((time.monotonic() - t0, dict(self.last_stage_times)))
+        calls.append((time.monotonic() - t0, dict(self.last_stage_times),
+                      dict(self.last_device_times)))
         return out
 
     sm.Sketcher.sketch_files = timed
@@ -1573,13 +1586,21 @@ def sketch_calls():
         sm.Sketcher.sketch_files = orig
 
 
-def stage_text(label: str, wall: float, stages: dict) -> str:
-    total = sum(stages.values())
-    return (f"stage times, {label}: " + ", ".join(
-        f"{k} {v * 1e3:.3f} ms"
-        for k, v in sorted(stages.items(), key=lambda kv: -kv[1]))
-        + f"; sum {total * 1e3:.3f} ms of the sketch_files wall "
-          f"{wall * 1e3:.3f} ms ({total / wall:.3f})")
+def ms_list(stages: dict) -> str:
+    return ", ".join(f"{k} {v * 1e3:.3f} ms"
+                     for k, v in sorted(stages.items(), key=lambda kv: -kv[1]))
+
+
+def stage_text(label: str, wall: float, stages: dict, device: dict) -> str:
+    """The host spans against the sketch_files wall, then the device spans
+    (CUDA events), their sum (device busy) and the idle share 1 - busy /
+    wall."""
+    total, busy = sum(stages.values()), sum(device.values())
+    return (f"stage times{', ' + label if label else ''}: host "
+            f"{ms_list(stages)}; sum "
+            f"{total * 1e3:.3f} ms of the sketch_files wall {wall * 1e3:.3f} "
+            f"ms ({total / wall:.3f}); device (CUDA events) {ms_list(device)}"
+            f"; busy {busy * 1e3:.3f} ms, idle share {1 - busy / wall:.3f}")
 
 
 def host_peak_gib() -> float:
@@ -1722,11 +1743,12 @@ def p4_genome(torch, tmp: Path) -> dict:
 
 def stage_table(torch, tmp: Path, genomes) -> None:
     """Phase 14, part 2: HG_STAGE_TIMING=1 on the CLI sketch of phase 5's
-    16 genomes and of phase 9's 2^27 bp genome: each one's last_stage_times
-    as one line, the stages' sum within STAGE_SUM_TOLERANCE of the
-    sketch_files wall, the .sketch bytes equal to the run without the
-    switch; then one HG_TRACE_DIR run of the 16 genomes, whose trace must
-    name K1."""
+    16 genomes and of phase 9's 2^27 bp genome, at pipeline_depth 1: each
+    one's host and device stages as one line, the host stages' sum within
+    STAGE_SUM_TOLERANCE of the sketch_files wall, every device stage of
+    the step timed, the .sketch bytes equal to the run without the switch;
+    then one HG_TRACE_DIR run of the 16 genomes, whose trace must name
+    K1."""
     import collections
     import os
 
@@ -1736,7 +1758,7 @@ def stage_table(torch, tmp: Path, genomes) -> None:
     cells.mkdir()
     for g in genomes:
         (cells / Path(g).name).symlink_to(g)
-    with sketch_calls() as calls:
+    with sketch_calls(depth=1) as calls:
         for label, src in (("16 x 4.19 Mbp genomes (phase 5)", cells),
                            (f"{HUGE_BP} bp genome (phase 9)", tmp / "huge")):
             sketches = []
@@ -1747,16 +1769,17 @@ def stage_table(torch, tmp: Path, genomes) -> None:
                          DEVICE])
                 sketches.append(out.read_bytes())
             os.environ.pop("HG_STAGE_TIMING")
-            wall, stages = calls[-1]
+            wall, stages, device = calls[-1]
             total = sum(stages.values())
-            phase(14, stage_text(label, wall, stages))
+            phase(14, stage_text(f"{label}, pipeline_depth 1", wall, stages,
+                                 device))
             check(sketches[0] == sketches[1],
                   f"{label}: .sketch bytes differ with HG_STAGE_TIMING")
             check(abs(total / wall - 1) <= STAGE_SUM_TOLERANCE,
                   f"{label}: the stages sum to {total:.4f} s of a "
                   f"{wall:.4f} s wall")
             for stage in ("hash", "compact", "distinct", "encode"):
-                check(stages.get(stage, 0) > 0, f"{label}: no {stage} time")
+                check(device.get(stage, 0) > 0, f"{label}: no {stage} time")
 
     trace_dir = tmp / "trace"
     os.environ["HG_TRACE_DIR"] = str(trace_dir)
@@ -1773,12 +1796,180 @@ def stage_table(torch, tmp: Path, genomes) -> None:
     k1 = [e for e in kernels if "rolling_packed_kernel" in e.get("name", "")]
     check(k1, f"the trace {trace.name} names no K1 launch")
     top = collections.Counter(e["name"][:60] for e in kernels).most_common(4)
+    # the device's own time: the kernels' and copies' durations, without
+    # the waits for the host's next launch that a CUDA-event span includes
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    own = [sum(e.get("dur", 0) for e in x) / 1e3 for x in (kernels, copies)]
     phase(14, f"HG_TRACE_DIR: {trace.name}, {trace.stat().st_size} B, "
               f"{len(events)} events, {len(kernels)} kernel events, {len(k1)} "
               f"of them K1 ({sum(e.get('dur', 0) for e in k1):.1f} us; K1 "
-              f"launches by its counter {launches}); most frequent kernels "
-              f"{top}")
+              f"launches by its counter {launches}); kernels' own time "
+              f"{own[0]:.3f} ms, {len(copies)} copies {own[1]:.3f} ms; most "
+              f"frequent kernels {top}")
 
+
+
+# -- phase 15: the pipelined sketch -------------------------------------------
+
+DEPTH_COPIES = 8  # phase 15(c): 16 genomes x 8 names = 128 genomes
+DEPTH_RUNS = 3  # runs at each depth, alternated
+
+
+def width_repeat(rng, p, bp: int):
+    """Codes of a repeat-rich genome of bp codes: one 64-code unit (one
+    K1 cell) repeated, whose windows keep 1-3 hashes, so that no cell
+    overflows its slots while the genome's survivors (at least bp / 64)
+    overflow its bucket's compaction width."""
+    import numpy as np
+    import torch
+
+    from hypergen_tpu_torch.ops.kmers import hash_kmer_positions
+
+    lsub = CHUNK // CELLS
+    while True:
+        unit = rng.integers(0, 4, size=lsub).astype(np.uint8)
+        window = torch.from_numpy(np.tile(unit, 2)[None, : lsub + p.ksize - 1])
+        _, keep = hash_kmer_positions(window, p.ksize, p.seed, p.threshold)
+        if 1 <= int(keep.sum()) <= 3:
+            return np.tile(unit, -(-bp // lsub))[:bp]
+
+
+def same_results(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x["n_hashes"] == y["n_hashes"] and x["norm2"] == y["norm2"]
+        and (x["hv"] == y["hv"]).all() for x, y in zip(a, b))
+
+
+def pipelined(torch, tmp: Path) -> dict:
+    """Phase 15: the asynchronous sketch API on the card. (a) 8 batches of
+    phase 5's genomes submitted under torch.cuda.set_sync_debug_mode
+    ("error"), then collected in reverse order: each equal to sketch_batch
+    of its group and, as .sketch bytes, to phase 5's CLI output. (b) the
+    capacity retries at collect: phase 6's scaled=50 batch (cell cap) and a
+    repeat-rich genome (compaction width), equal to the CPU. (c)
+    sketch_files of 128 x 4.19 Mbp at pipeline_depth 1 and 3, alternated:
+    wall, genomes/s, host stages, device busy and idle share, identical
+    bytes. Returns K1's launches in one depth-3 run of (c)."""
+    import numpy as np
+
+    from hypergen_tpu_torch import SketchParams
+    from hypergen_tpu_torch.io.fastx import packed_from_codes, read_genome_packed
+    from hypergen_tpu_torch.io.sketch_db import dump_sketch, load_sketch
+    from hypergen_tpu_torch.models.sketcher import Sketcher
+    from hypergen_tpu_torch.ops.kernels.hash_kernel import hash_packed_rows
+
+    p = SketchParams()
+    db = tmp / "db.sketch"
+    names = [fs.file_str for fs in load_sketch(db)]
+    parsed = [read_genome_packed(n) for n in names]
+    groups = [parsed[i : i + 2] for i in range(0, len(parsed), 2)]
+    sk = Sketcher(p, device=DEVICE)
+    ref = [sk.sketch_batch(g) for g in groups]
+    torch.cuda.synchronize()
+
+    # (a) submit without waiting: the mode is live (a read raises), then
+    # the submits under it
+    hash_packed_rows.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        try:
+            torch.zeros(1, device=DEVICE).item()
+            live = False
+        except RuntimeError:
+            live = True
+        t0 = time.monotonic()
+        handles = [sk.submit_batch_packed(g) for g in groups]
+        submit_s = time.monotonic() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(live, "set_sync_debug_mode('error') did not raise on .item()")
+    t0 = time.monotonic()
+    got = sk.collect_batches(handles[::-1])[::-1]
+    collect_s = time.monotonic() - t0
+    check(hash_packed_rows.launches == len(groups),
+          f"{len(groups)} submits launched K1 {hash_packed_rows.launches} times")
+    check(all(same_results(a, b) for a, b in zip(got, ref)),
+          "a collected batch differs from sketch_batch of its group")
+    out = tmp / "p15a.sketch"
+    dump_sketch([sk._to_filesketch(r, n) for r, n in
+                 zip([r for b in got for r in b], names)], out)
+    check(out.read_bytes() == db.read_bytes(),
+          "the collected batches' .sketch differs from phase 5's")
+    phase(15, f"(a) {len(groups)} batches of 2 x {GENOME_BP} bp submitted "
+              f"under set_sync_debug_mode('error') (live: .item() raised) in "
+              f"{submit_s * 1e3:.3f} ms, K1 launched {len(groups)} times, no "
+              f"host read of the card; collected in reverse order in "
+              f"{collect_s * 1e3:.3f} ms; each equals sketch_batch of its "
+              f"group, and the .sketch equals phase 5's byte for byte")
+
+    # (b) capacity retries at collect, card against CPU
+    rng = np.random.default_rng(SEED + 15)
+    cases = (
+        ("cell cap, phase 6's scaled=50 batch", SketchParams(scaled=50),
+         [read_genome_packed(tmp / "ladder" / n)
+          for n in ("repeat.fna", "plain.fna")], "cell_cap"),
+        ("compaction width, a 64-code unit repeated to 300,000 bp", p,
+         [packed_from_codes(width_repeat(rng, p, 300_000)),
+          read_genome_packed(tmp / "ladder" / "plain.fna")], "width"),
+    )
+    for label, params, genomes, kind in cases:
+        card = Sketcher(params, device=DEVICE)
+        hash_packed_rows.launches = 0
+        a = card.collect_batch(card.submit_batch_packed(genomes))
+        launches = hash_packed_rows.launches
+        b = Sketcher(params, device="cpu").sketch_batch(genomes)
+        check(card.retries[kind] >= 1, f"{label}: no {kind} retry")
+        check(same_results(a, b), f"{label}: card != CPU after the retry")
+        phase(15, f"(b) {label}: retries {dict(card.retries)}, K1 launches "
+                  f"{launches}; n_hashes {[r['n_hashes'] for r in a]}; hv, "
+                  f"norm2 and n_hashes equal the CPU's")
+
+    # (c) depth: 128 genomes, 16 files under 8 names each
+    d = tmp / "depth"
+    d.mkdir()
+    for c in range(DEPTH_COPIES):
+        for n in names:
+            (d / f"c{c}_{Path(n).name}").symlink_to(n)
+    paths = sorted(d.iterdir())
+    sk = Sketcher(p, device=DEVICE)
+    t0 = time.monotonic()
+    sk.sketch_files(paths, progress=False, pipeline_depth=3)  # warm-up
+    phase(15, f"(c) warm-up at depth 3: {time.monotonic() - t0:.4f} s")
+    runs = {1: [], 3: []}
+    k1 = {1: set(), 3: set()}
+    sketches = set()
+    for depth in (1, 3) * DEPTH_RUNS:
+        hash_packed_rows.launches = 0
+        t0 = time.monotonic()
+        fs = sk.sketch_files(paths, progress=False, pipeline_depth=depth)
+        wall = time.monotonic() - t0
+        k1[depth].add(hash_packed_rows.launches)
+        host, device = dict(sk.last_stage_times), dict(sk.last_device_times)
+        out = tmp / "p15c.sketch"
+        dump_sketch(fs, out)
+        sketches.add(out.read_bytes())
+        runs[depth].append((wall, sum(device.values())))
+        phase(15, f"(c) depth {depth}: {len(paths)} genomes in {wall:.4f} s, "
+                  f"{len(paths) / wall:.3f} genomes/s, K1 launches "
+                  f"{hash_packed_rows.launches}; "
+                  + stage_text("", wall, host, device))
+        check(abs(sum(host.values()) / wall - 1) <= STAGE_SUM_TOLERANCE,
+              f"depth {depth}: the host stages sum to "
+              f"{sum(host.values()):.4f} s of a {wall:.4f} s wall")
+    check(len(sketches) == 1, "the .sketch bytes differ across depths or runs")
+    check(len(k1[1]) == 1 and k1[1] == k1[3], f"K1 launches vary: {k1}")
+    med = {dep: statistics.median(w for w, _ in r) for dep, r in runs.items()}
+    idle = {dep: [round(1 - b / w, 4) for w, b in r]
+            for dep, r in runs.items()}
+    phase(15, f"(c) {len(paths)} x {GENOME_BP} bp, median wall: depth 1 "
+              f"{med[1]:.4f} s, depth 3 {med[3]:.4f} s (depth 3 / depth 1 "
+              f"{med[3] / med[1]:.3f}); idle share by run: depth 1 {idle[1]}, "
+              f"depth 3 {idle[3]}; .sketch bytes identical across "
+              f"{2 * DEPTH_RUNS} runs")
+    return {"launches_depth3": k1[3].pop(),
+            "launches_depth3_on": f"sketch_files of {len(paths)} x "
+                                  f"{GENOME_BP} bp at pipeline_depth 3 "
+                                  f"(phase 15)"}
 
 
 def main() -> None:
@@ -1856,6 +2047,10 @@ def main() -> None:
         stage_table(torch, Path(tmp), genomes)
         p4 = p4_genome(torch, Path(tmp))
 
+        # 15. the pipelined sketch: submit without a host read, retries at
+        # collect, sketch_files at depth 1 and 3
+        p15 = pipelined(torch, Path(tmp))
+
     check("jax" not in sys.modules, "jax was imported")
     leaked = sorted(m for m in sys.modules if m.startswith("hypergen_tpu")
                     and not m.startswith("hypergen_tpu_torch"))
@@ -1873,6 +2068,7 @@ def main() -> None:
         "bound_ms": k1_b[0], "bound_by": k1_b[1], "library_ms": None,
         "one_row": {"shape": "1 x 1024 chunks (2^27 bp)", **k1_one},
         "launches_2_31": {k: v[0] for k, v in p4.items()},
+        **p15,
     }, {
         "name": "hash_chunks", "route": "cuda", "source": SOURCE,
         "replaces": K2_REPLACES, "launches": huge["k2_launches"],

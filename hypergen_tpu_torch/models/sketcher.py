@@ -2,17 +2,28 @@
 
 Counterpart of the packed path of ``hypergen_tpu.models.sketcher``
 (``make_sketch_step(validity="packed")`` and ``Sketcher``). One step per
-batch of same-bucket genomes:
+batch of same-bucket genomes, enqueued on the device's current stream at
+capacities fixed on the host, so that nothing in it waits for the card:
 
-  packed 2-bit words [B, W] + n_pos [B]
+  packed 2-bit words [B, W] + invalid runs + n_pos [B], packed into one
+  host buffer (pinned on a CUDA device) and uploaded in one copy
     -> K1 (``ops.kernels.hash_kernel``): unpack, rolling canonical k-mer,
-       t1ha2, FracMinHash threshold, per-cell survivor slots + true counts
-    -> cell-cap ladder: a cell with more survivors than slots reruns K1
-       with cap = min(next_pow2(cell_max), lsub); nothing is dropped
-    -> compaction of the survivors with their positions
+       t1ha2, FracMinHash threshold, per-cell survivor slots (``cap`` a
+       cell) + true cell counts
+    -> compaction of the survivors with their positions into a fixed
+       width (``ops.compact.compact_to_width``)
     -> run postfilter: drop windows that overlap an invalid run
     -> the distinct survivor hashes of each genome
     -> wyrng-expand + bundle HV encode, i16 wrap, wrapping-i32 norm^2
+    -> copied to host tensors (pinned on a CUDA device), then an event
+
+``submit_batch_packed`` returns a handle at once; ``collect_batch`` waits
+for the handle's event and reads the true counts. If a cell held more
+survivors than its slots, or a genome more than the width, it grows that
+capacity (as the JAX package's ``_finalize_batch``) and reruns the batch
+from the host inputs the handle keeps: nothing is dropped, and the result
+is the one a run without overflow gives. ``sketch_files`` keeps up to
+``pipeline_depth`` batches in flight while its thread parses and packs.
 
 K1 hashes every position as if valid; windows that touch an N run, a
 record separator or the padding are removed exactly by the postfilter. The
@@ -29,17 +40,18 @@ every card of the host by default, only its own card in a pod process) it
 is split over them (``parallel.seqpar``, K2); otherwise, and always on the
 CPU as in the JAX package, it streams through the same K1 step in
 fixed-size tiles whose survivor sets are merged on the host and encoded
-once (``sketch_packed_tiled``).
+once (``sketch_packed_tiled``). These routes run synchronously.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,7 +64,7 @@ from hypergen_tpu_torch.io.fastx import (
 )
 from hypergen_tpu_torch.io.sketch_db import FileSketch
 from hypergen_tpu_torch.params import SketchParams
-from hypergen_tpu_torch.ops.compact import compact_masked
+from hypergen_tpu_torch.ops.compact import compact_to_width
 from hypergen_tpu_torch.ops.encode import encode_hv, hv_norm2_i32, hv_to_i16
 from hypergen_tpu_torch.ops.kernels.hash_kernel import (
     MAX_POSITIONS,
@@ -71,12 +83,12 @@ ENCODE_BLOCK = 512  # hashes per encode block: bounds the [B, n, D] bit tensor
 # Routing of huge genomes on a CUDA device (Sketcher._one_row_fits). A
 # one-row batch's peak allocated memory is its packed words (C/4 bytes a
 # chunk) and ONE_ROW_BYTES_PER_SLOT for each of K1's n_chunks*cells*cap
-# slots: h, pos and valid (13 bytes) and the compaction's two int64 prefix
-# sums (16). chip_smoke.py phase 9 measures it on the card at 2^27, 2^29 and
-# 2^31 - 1 bp (29.02 bytes a slot on an H100) and fails if any peak exceeds
-# the estimate. The router doubles the estimate as a margin (one step of
-# the cell-cap ladder) and keeps ONE_ROW_RESERVE free for the encode and
-# the allocator.
+# slots: h, pos and valid (13 bytes) and the compaction's prefix sum (16:
+# cumsum's int64 copy of the mask and its int64 result). chip_smoke.py
+# phase 9 measures it on the card at 2^27, 2^29 and 2^31 - 1 bp (29.02
+# bytes a slot on an H100) and fails if any peak exceeds the estimate. The
+# router doubles the estimate as a margin (one step of the cell-cap ladder)
+# and keeps ONE_ROW_RESERVE free for the encode and the allocator.
 ONE_ROW_BYTES_PER_SLOT = 32
 ONE_ROW_RESERVE = 2 << 30
 
@@ -137,6 +149,34 @@ def distinct_hashes(
     return hs, (hs != -1) & (hs != prev)
 
 
+class HostBatch(NamedTuple):
+    """A step's host inputs: int32 views of one host buffer ``buf`` (pinned
+    on a CUDA device), uploaded in one copy. words [B, W] holds u32 bits,
+    as K1 takes them; runs [B, R, 2] the invalid runs padded with rows at
+    _NO_RUN to the batch's largest run count; n_pos [B] the k-mer counts."""
+
+    buf: torch.Tensor
+    words: np.ndarray
+    runs: np.ndarray
+    n_pos: np.ndarray
+
+
+@dataclasses.dataclass
+class SketchHandle:
+    """A batch in flight (Sketcher.submit_batch_packed): what collect needs
+    to read its outputs, check its capacities and rerun it."""
+
+    n: int  # genomes (rows)
+    n_chunks: int
+    host: HostBatch
+    cap: int  # K1 slots a cell
+    width: int  # compaction width
+    hashes: bool  # outputs: the distinct hashes (tiles), not the HV
+    out: Tuple[torch.Tensor, ...]  # on the host (pinned on a CUDA device)
+    device_out: Tuple[torch.Tensor, ...]  # read by the copy; kept until collect
+    event: Optional[torch.cuda.Event]  # recorded after the copy; None: CPU
+
+
 class Sketcher:
     """Batched genome sketcher on one torch device.
 
@@ -175,12 +215,18 @@ class Sketcher:
         self.cell_cap = int(
             min(max(4, -(-8 * self.lsub // max(params.scaled, 1))), self.lsub)
         )
+        # per-bucket growth of the compaction width: one repeat-rich genome
+        # must not widen every other bucket's step
+        self._enc_overflow_factor: Dict[int, int] = {}
+        # capacity reruns at collect, by capacity ("cell_cap", "width")
+        self.retries: Dict[str, int] = collections.Counter()
         self._timer: Optional[SketchTimer] = None  # set inside sketch_files
         self.last_stage_times: Dict[str, float] = {}
+        self.last_device_times: Dict[str, float] = {}
 
     def _stage(self, name: str, device: bool = False):
-        """A span of sketch_files' stage timer (device=True: timed on the
-        device's stream); nothing outside sketch_files."""
+        """A span of the stage timer (device=True: timed on the device's
+        stream); nothing while no timer is set (outside sketch_files)."""
         if self._timer is None:
             return contextlib.nullcontext()
         return self._timer.stage(name, device)
@@ -190,12 +236,27 @@ class Sketcher:
         n_pos = max(L - self.params.ksize + 1, 1)
         return _next_pow2(-(-n_pos // self.C))
 
-    def _prepare_batch(
-        self, genomes: List[PackedGenome], n_chunks: int
-    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Host inputs for one step: (packed words int32 [B, W] holding u32
-        bits, as K1 takes them; invalid runs int32 [B, R, 2] padded to the
-        batch's largest run count; k-mer counts n_pos int32 [B]).
+    def _enc_cap(self, n_chunks: int) -> int:
+        """Compaction width of a bucket: the JAX package's encode capacity,
+        2x the expected survivors + 512, times the bucket's overflow
+        factor, rounded up to 256. Survivors ~ Binomial(n_pos, 1/scaled)
+        plus repeat occurrences; the collect-time check makes an
+        undersized width a rerun, never a wrong sketch."""
+        cap = self._enc_cap_base(n_chunks)
+        cap *= self._enc_overflow_factor.get(n_chunks, 1)
+        return int(-(-cap // 256) * 256)
+
+    def _enc_cap_base(self, n_chunks: int) -> int:
+        expected = n_chunks * self.C // max(self.params.scaled, 1)
+        return 2 * expected + 512
+
+    def _prepare_batch(self, genomes: List[PackedGenome], n_chunks: int
+                       ) -> HostBatch:
+        """Host inputs for one step (HostBatch), for genomes that fit in
+        n_chunks chunks. Each call packs into a buffer of its own; on a
+        CUDA device it comes from PyTorch's pinned host allocator, which
+        hands a block out again only once the copies that read it have
+        completed, so a later pack never overwrites bytes in flight.
 
         The one place where runs become int32: a run coordinate at or above
         2^31 raises (the router sends no such genome here; a tile's runs
@@ -207,86 +268,173 @@ class Sketcher:
                     f"invalid run up to {int(g.runs.max())} in a batch row: "
                     f"run coordinates must be below 2^31 (tile the genome)"
                 )
+        B = len(genomes)
         W = packed_row_words(n_chunks, self.C)
-        buf = np.zeros((len(genomes), W * 4), dtype=np.uint8)
         R = max([1] + [g.runs.shape[0] for g in genomes])
-        runs = np.full((len(genomes), R, 2), _NO_RUN, dtype=np.int32)
-        n_pos = np.zeros(len(genomes), dtype=np.int32)
+        buf = torch.empty(B * (W + 2 * R + 1), dtype=torch.int32,
+                          pin_memory=self.device.type == "cuda")
+        flat = buf.numpy()
+        words = flat[: B * W].reshape(B, W)
+        runs = flat[B * W : B * (W + 2 * R)].reshape(B, R, 2)
+        n_pos = flat[B * (W + 2 * R) :]
+        row_bytes = words.view(np.uint8)
         for i, g in enumerate(genomes):
             nb = min(g.packed2.shape[0], W * 4)
-            buf[i, :nb] = g.packed2[:nb]
+            row_bytes[i, :nb] = g.packed2[:nb]
+            row_bytes[i, nb:] = 0
             runs[i, : g.runs.shape[0]] = g.runs
+            runs[i, g.runs.shape[0] :] = _NO_RUN
             n_pos[i] = max(g.length - k + 1, 0)
-        return buf.view(np.int32), runs, n_pos
+        return HostBatch(buf, words, runs, n_pos)
 
-    def _hash(self, words, n_pos, n_chunks):
-        """K1 over a batch, climbing the cell-cap ladder until no cell has
-        more survivors than slots."""
+    def _enqueue(self, host: HostBatch, n_chunks: int, cap: int, width: int,
+                 hashes: bool) -> SketchHandle:
+        """Enqueue the whole step on the device's current stream, with K1
+        at `cap` slots a cell and the compaction at `width`; nothing here
+        reads the device. Outputs per row: the HV (int16 [B, D]) and meta
+        int64 [B, 4] = (norm2, n_hashes, cell_max, survivors); with
+        hashes=True the sorted hashes int64 [B, width] and their
+        first-occurrence mask in place of the HV (norm2 0)."""
         p = self.params
-        cap = self.cell_cap
-        while True:
+        B, W = host.words.shape
+        R = host.runs.shape[1]
+        with self._stage("upload", device=True):
+            buf = host.buf.to(self.device, non_blocking=True)
+            words = buf[: B * W].view(B, W)
+            runs = buf[B * W : B * (W + 2 * R)].view(B, R, 2)
+            n_pos = buf[B * (W + 2 * R) :]
+        with self._stage("hash", device=True):
             h, pos, valid, cell_max = hash_packed_rows(
                 words, n_pos, n_chunks, self.C, p.ksize, p.seed, p.threshold,
                 canonical=p.canonical, method=p.sketch_method,
                 cells=self.cells, cap=cap,
             )
-            max_count = int(cell_max.max())
-            if max_count <= cap:
-                return h, pos, valid
-            log.warning(
-                "survivor cap overflow (%d > %d); retrying", max_count, cap
-            )
-            cap = min(_next_pow2(max_count), self.lsub)
+        with self._stage("compact", device=True):
+            (h, pos), count = compact_to_width(valid, width, h, pos)
+            filled = torch.arange(width, device=h.device) < count[:, None]
+            clean = filled & filter_positions_by_runs(pos, runs, p.ksize)
+        with self._stage("distinct", device=True):
+            hs, first = distinct_hashes(h, clean)
+        n_hashes = first.sum(dim=-1)
+        if hashes:
+            norm2, outs = torch.zeros_like(n_hashes), (hs, first)
+        else:
+            with self._stage("encode", device=True):
+                hv16 = hv_to_i16(
+                    encode_hv(hs, first, p.hv_d, block=ENCODE_BLOCK))
+                norm2, outs = hv_norm2_i32(hv16), (hv16,)
+        meta = torch.stack(
+            [norm2.to(torch.int64), n_hashes, cell_max.to(torch.int64),
+             count], dim=-1)
+        device_out = (*outs, meta)
+        event = None
+        with self._stage("download", device=True):
+            if self.device.type == "cuda":
+                out = tuple(
+                    torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    .copy_(t, non_blocking=True) for t in device_out)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+            else:
+                out = tuple(t.cpu() for t in device_out)
+        return SketchHandle(B, n_chunks, host, cap, width, hashes, out,
+                            device_out, event)
 
-    def _distinct(
-        self, genomes: List[PackedGenome], n_chunks: int
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The K1 step up to the distinct set: (sorted h int64 [B, N],
-        first-occurrence mask bool [B, N]) on the device, for genomes that
-        fit in n_chunks chunks."""
+    def _submit(self, genomes: List[PackedGenome], n_chunks: int,
+                hashes: bool = False) -> SketchHandle:
         with self._stage("pack"):
             host = self._prepare_batch(genomes, n_chunks)
-        with self._stage("upload", device=True):
-            words, runs, n_pos = (torch.from_numpy(a).to(self.device)
-                                  for a in host)
-        with self._stage("hash", device=True):
-            h, pos, valid = self._hash(words, n_pos, n_chunks)
-        with self._stage("compact", device=True):
-            (h, pos), counts = compact_masked(valid, h, pos)
-            filled = torch.arange(h.shape[1], device=h.device) < counts[:, None]
-            clean = filled & filter_positions_by_runs(
-                pos, runs, self.params.ksize)
-        with self._stage("distinct", device=True):
-            return distinct_hashes(h, clean)
+        with self._stage("dispatch"):
+            return self._enqueue(host, n_chunks, self.cell_cap,
+                                 self._enc_cap(n_chunks), hashes)
 
-    def _encode(self, hs: torch.Tensor, first: torch.Tensor
-                ) -> List[Dict[str, object]]:
-        """Encode each row's distinct hashes: per row {"hv": int16 [D]
-        numpy, "norm2": int, "n_hashes": int}."""
-        with self._stage("encode", device=True):
-            hv16 = hv_to_i16(
-                encode_hv(hs, first, self.params.hv_d, block=ENCODE_BLOCK)
-            )
-            norm2 = hv_norm2_i32(hv16)
-            hv16, norm2, n_hashes = (
-                t.cpu().numpy() for t in (hv16, norm2, first.sum(dim=-1))
-            )
+    def submit_batch_packed(self, genomes: List[PackedGenome]
+                            ) -> SketchHandle:
+        """Enqueue one step over 1 to `batch` genomes (PackedGenome) in the
+        bucket of the longest and return its handle without waiting for
+        the card; collect_batch(handle) gives the results."""
+        if not 1 <= len(genomes) <= self.batch:
+            raise ValueError(f"batch size must be in [1, {self.batch}]")
+        return self._submit(genomes,
+                            max(self._bucket(g.length) for g in genomes))
+
+    def submit_batch(self, codes_list: List[np.ndarray]) -> SketchHandle:
+        """submit_batch_packed of genomes given as flat code arrays (uint8
+        0-3, INVALID = 4), packed on the host here; sketch_files parses
+        straight into PackedGenomes instead."""
+        return self.submit_batch_packed(
+            [packed_from_codes(np.asarray(c, dtype=np.uint8))
+             for c in codes_list])
+
+    def submit(self, codes: np.ndarray) -> SketchHandle:
+        """submit_batch of one genome."""
+        return self.submit_batch([codes])
+
+    def collect_batch(self, handle: SketchHandle) -> List[Dict[str, object]]:
+        """Wait for one handle's step and return per genome {"hv": int16
+        [D] numpy, "norm2": int, "n_hashes": int} (with hashes=True, each
+        row's distinct hashes, int64 numpy). A capacity that overflowed
+        grows (the cell cap to min(next_pow2(cell_max), C/cells), the
+        bucket's width factor as the JAX package's) and the batch reruns
+        synchronously from its host inputs, at most 7 times."""
+        with self._stage("collect"):
+            for _ in range(7):
+                if handle.event is not None:
+                    handle.event.synchronize()
+                meta = handle.out[-1].numpy()
+                cell_max = int(meta[:, 2].max())
+                survivors = int(meta[:, 3].max())
+                if cell_max <= handle.cap and survivors <= handle.width:
+                    return self._results(handle, meta)
+                cap = handle.cap
+                if cell_max > cap:
+                    log.warning("survivor cap overflow (%d > %d); retrying",
+                                cell_max, cap)
+                    self.retries["cell_cap"] += 1
+                    cap = min(_next_pow2(cell_max), self.lsub)
+                if survivors > handle.width:
+                    log.warning("compaction width overflow (%d > %d); "
+                                "retrying", survivors, handle.width)
+                    self.retries["width"] += 1
+                    nc = handle.n_chunks
+                    need = -(-survivors // self._enc_cap_base(nc))
+                    self._enc_overflow_factor[nc] = max(
+                        self._enc_overflow_factor.get(nc, 1) * 2,
+                        _next_pow2(need),
+                    )
+                handle = self._enqueue(handle.host, handle.n_chunks, cap,
+                                       self._enc_cap(handle.n_chunks),
+                                       handle.hashes)
+        raise RuntimeError("sketcher capacity retry limit exceeded")
+
+    @staticmethod
+    def _results(handle: SketchHandle, meta: np.ndarray) -> list:
+        if handle.hashes:
+            hs, first = (t.numpy() for t in handle.out[:2])
+            return [hs[i][first[i]] for i in range(handle.n)]
+        hv16 = handle.out[0].numpy().copy()  # let the pinned block go
         return [
-            {"hv": hv16[i], "norm2": int(norm2[i]),
-             "n_hashes": int(n_hashes[i])}
-            for i in range(hv16.shape[0])
+            {"hv": hv16[i], "norm2": int(meta[i, 0]),
+             "n_hashes": int(meta[i, 1])}
+            for i in range(handle.n)
         ]
 
-    def sketch_batch(self, genomes: List[PackedGenome]) -> List[Dict[str, object]]:
-        """Sketch up to `batch` genomes in one step on the device.
+    def collect_batches(self, handles: Sequence[SketchHandle]
+                        ) -> List[List[Dict[str, object]]]:
+        """collect_batch of each handle, in the handles' order (any order
+        of submission)."""
+        return [self.collect_batch(h) for h in handles]
 
-        Returns per genome {"hv": int16 [D] numpy, "norm2": int,
-        "n_hashes": int}.
-        """
+    def collect(self, handle: SketchHandle) -> Dict[str, object]:
+        """The one result of a submit(codes) handle."""
+        return self.collect_batch(handle)[0]
+
+    def sketch_batch(self, genomes: List[PackedGenome]) -> List[Dict[str, object]]:
+        """Sketch up to `batch` genomes in one step on the device:
+        collect_batch(submit_batch_packed(genomes)); [] for none."""
         if not genomes:
             return []
-        n_chunks = max(self._bucket(g.length) for g in genomes)
-        return self._encode(*self._distinct(genomes, n_chunks))
+        return self.collect_batch(self.submit_batch_packed(genomes))
 
     # -- single-device huge genomes: bounded fixed-shape tiling -------------
 
@@ -322,9 +470,10 @@ class Sketcher:
         """Sketch ONE huge genome on ONE device in bounded memory.
 
         Tiles of tile_chunks chunks (default seqpar_min_chunks // 8) go
-        through the K1 step `batch` at a time; each tile's distinct survivor hashes come to the host, whose
-        np.unique union is the genome's distinct set (dedup composes as set
-        union), encoded once on the device (the bundle is a sum). The result
+        through the step `batch` at a time, one batch after another; each
+        tile's distinct survivor hashes come to the host, whose np.unique
+        union is the genome's distinct set (dedup composes as set union),
+        encoded once on the device (the bundle is a sum). The result
         equals the one-shot step's bit for bit. Device memory is
         O(batch * tile_chunks * C), host memory O(survivors).
         """
@@ -333,12 +482,17 @@ class Sketcher:
         tiles = self._tile_genome(g, tile_chunks)
         parts = [np.zeros(0, dtype=np.int64)]
         for lo in range(0, len(tiles), self.batch):
-            hs, first = self._distinct(tiles[lo : lo + self.batch], tile_chunks)
-            hs, first = hs.cpu().numpy(), first.cpu().numpy()
-            parts.extend(hs[i][first[i]] for i in range(hs.shape[0]))
+            parts.extend(self.collect_batch(self._submit(
+                tiles[lo : lo + self.batch], tile_chunks, hashes=True)))
         merged = np.unique(np.concatenate(parts).view(np.uint64)).view(np.int64)
         h = torch.from_numpy(merged).to(self.device)[None]
-        return self._encode(h, torch.ones_like(h, dtype=torch.bool))[0]
+        with self._stage("encode", device=True):
+            hv16 = hv_to_i16(encode_hv(
+                h, torch.ones_like(h, dtype=torch.bool), self.params.hv_d,
+                block=ENCODE_BLOCK))
+            norm2 = hv_norm2_i32(hv16)
+        return {"hv": hv16[0].cpu().numpy(), "norm2": int(norm2[0]),
+                "n_hashes": int(merged.shape[0])}
 
     def _one_row_bytes(self, n_chunks: int) -> int:
         """Peak allocated bytes of a one-row batch of n_chunks chunks, by
@@ -428,6 +582,7 @@ class Sketcher:
         self,
         paths: Sequence,
         progress: bool = True,
+        pipeline_depth: int = 3,
         io_threads: int = 0,
         read_ahead: int = 0,
     ) -> List[FileSketch]:
@@ -437,16 +592,22 @@ class Sketcher:
         16), at least 1) through a bounded read-ahead window of read_ahead
         files (0: max(8 x batch, 2 x io_threads)), so memory stays bounded
         for any folder. Same-bucket genomes within the window are grouped
-        into batches; partial groups run at the end. progress=False turns
-        the progress bar off.
+        into batches; partial groups run at the end. Up to pipeline_depth
+        batches are in flight: the oldest is collected when the window is
+        full, so this thread parses and packs the next batches while the
+        device runs the earlier ones (1: each batch is collected right
+        after its submit). A huge genome waits for the window to drain
+        (its route sizes itself by the device's free memory) and runs
+        synchronously. progress=False turns the progress bar off.
 
-        Each call times its stages (utils.timing.SketchTimer): the totals
-        in seconds land in ``last_stage_times``, and with HG_STAGE_TIMING
-        set the table is logged at INFO. ``io_pool`` is the I/O pool's own
-        time (submitting parses, which starts its threads, and its
-        shutdown), ``fasta_read`` the wait on a parse. On a CUDA device the device
-        stages are timed by CUDA events on its stream, read after the
-        path's last wait for the device; the host stages by the clock.
+        Each call times its stages (utils.timing.SketchTimer): the host
+        spans' totals in seconds, which add up to the call's wall time,
+        land in ``last_stage_times``, and on a CUDA device the device
+        spans' (CUDA events on its stream, read after the last collect) in
+        ``last_device_times``; with HG_STAGE_TIMING set the table is
+        logged at INFO. ``io_pool`` is the I/O pool's own time (submitting
+        parses, which starts its threads, and its shutdown), ``fasta_read``
+        the wait on a parse, ``collect`` the wait on the device.
         """
         from hypergen_tpu_torch.utils.progress import ProgressBar
 
@@ -456,15 +617,23 @@ class Sketcher:
         read_ahead = read_ahead or max(8 * self.batch, 2 * io_threads)
         results: Dict[int, FileSketch] = {}
         timer = self._timer = SketchTimer(self.device)
+        window = collections.deque()  # (input indices, handle), oldest first
 
         def finish(i: int, res: Dict[str, object]) -> None:
             with timer.stage("compress"):
                 results[i] = self._to_filesketch(res, str(paths[i]))
             pb.inc()
 
-        def run(group: List[Tuple[int, PackedGenome]]) -> None:
-            for (i, _), res in zip(group, self.sketch_batch([g for _, g in group])):
+        def drain_one() -> None:
+            idxs, handle = window.popleft()
+            for i, res in zip(idxs, self.collect_batch(handle)):
                 finish(i, res)
+
+        def run(group: List[Tuple[int, PackedGenome]]) -> None:
+            window.append(([i for i, _ in group],
+                           self.submit_batch_packed([g for _, g in group])))
+            if len(window) >= pipeline_depth:
+                drain_one()
 
         by_bucket: Dict[int, List[Tuple[int, PackedGenome]]] = {}
         pending = collections.deque()
@@ -490,6 +659,8 @@ class Sketcher:
                 fill()
                 bucket = self._bucket(g.length)
                 if bucket >= self.seqpar_min_chunks:
+                    while window:
+                        drain_one()
                     finish(i, self._sketch_huge(g))
                     continue
                 by_bucket.setdefault(bucket, []).append((i, g))
@@ -499,6 +670,8 @@ class Sketcher:
                 group = by_bucket[bucket]
                 for j in range(0, len(group), self.batch):
                     run(group[j : j + self.batch])
+            while window:
+                drain_one()
         finally:
             with timer.stage("io_pool"):
                 pool.shutdown(wait=True)
@@ -506,6 +679,7 @@ class Sketcher:
         pb.finish()
         timer.resolve()
         self.last_stage_times = dict(timer.totals)
+        self.last_device_times = dict(timer.device_totals)
         if os.environ.get("HG_STAGE_TIMING"):
             log.info("sketch stage timing:\n%s", timer.report())
         return [results[i] for i in range(len(paths))]

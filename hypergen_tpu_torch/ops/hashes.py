@@ -95,11 +95,11 @@ def mm_hash64(key: torch.Tensor) -> torch.Tensor:
 
 
 def wyrng_word_offsets(n_words: int, device=None) -> torch.Tensor:
-    """(i+1)*P0 mod 2^64 for i in [0, n_words) as int64 [n_words]."""
-    return torch.tensor(
-        [i64((i + 1) * WY_P0) for i in range(n_words)],
-        dtype=torch.int64, device=device,
-    )
+    """(i+1)*P0 mod 2^64 for i in [0, n_words) as int64 [n_words]. Made on
+    the device (int64 products wrap mod 2^64, as in wyrng_words_from_hash):
+    a copy from the host would make the sketch step wait for the card."""
+    i = torch.arange(1, n_words + 1, dtype=torch.int64, device=device)
+    return i * i64(WY_P0)
 
 
 def wyrng_words_from_hash(h: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:

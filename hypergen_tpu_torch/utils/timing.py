@@ -2,12 +2,15 @@
 
 Counterpart of ``hypergen_tpu.utils.timing``. ``StageTimer`` is the JAX
 package's class: named host-clock spans and the same report. The sketch
-path (``Sketcher.sketch_files``) uses ``SketchTimer``, a StageTimer whose
-spans may be timed on a CUDA stream and may nest. The port's sketch step
-is not the JAX package's relay pipeline, so its span names are its own
-(``io_pool``, ``fasta_read``, ``pack``, ``upload``, ``hash``, ``compact``,
-``distinct``, ``encode``, ``compress``, ``huge:<route>``), not the relay
-stages ``upload_wait``, ``collect`` and ``pack+dispatch``.
+path (``Sketcher``) uses ``SketchTimer``, a StageTimer whose spans may nest
+and may be timed on a CUDA stream. Its host spans tile the calling
+thread's time, so they add up to the wall: ``io_pool``, ``fasta_read``,
+``pack``, ``dispatch`` (enqueueing a step), ``collect`` (the wait for a
+step's outputs and its capacity check) and ``compress``, named after the
+JAX package's spans where they match, and ``huge:<route>``. Its device
+spans (``upload``, ``hash``, ``compact``, ``distinct``, ``encode``,
+``download``) are the stream's busy time, kept apart: with batches in
+flight they overlap the host spans.
 
 ``maybe_profile`` captures a ``torch.profiler`` trace (``HG_TRACE_DIR`` in
 the CLI) where the JAX package captures a ``jax.profiler`` one.
@@ -38,12 +41,14 @@ class StageTimer:
             self.counts[name] += 1
 
     def report(self) -> str:
-        lines = []
-        for name in sorted(self.totals, key=self.totals.get, reverse=True):
-            lines.append(
-                f"{name}: {self.totals[name]:.3f}s over {self.counts[name]} calls"
-            )
-        return "\n".join(lines)
+        return _report(self.totals, self.counts)
+
+
+def _report(totals: Dict[str, float], counts: Dict[str, int]) -> str:
+    lines = []
+    for name in sorted(totals, key=totals.get, reverse=True):
+        lines.append(f"{name}: {totals[name]:.3f}s over {counts[name]} calls")
+    return "\n".join(lines)
 
 
 class _Span:
@@ -56,26 +61,24 @@ class _Span:
         self.children: List["_Span"] = []
 
     def elapsed(self) -> float:
-        if self.events is not None:
-            start, end = self.events
-            end.synchronize()
-            self.seconds = start.elapsed_time(end) / 1e3
-            self.events = None
-        return self.seconds
+        """A device span's time: waits for its end event."""
+        start, end = self.events
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
 
 
 class SketchTimer(StageTimer):
     """A StageTimer for the sketch path.
 
     ``stage(name, device=True)`` on a CUDA device is timed by a pair of
-    CUDA events recorded on the device's current stream: the span's time
-    is the stream's, and recording adds no wait on the host. Every other
-    span is timed by the host clock. A span opened inside another is
-    charged to itself only: the outer span's total excludes the time of
-    the spans inside it, so the totals add up to the wall time they cover.
-    Spans are folded into ``totals`` and ``counts`` by ``resolve()``,
-    which reads the events: call it once the path has waited for the
-    device.
+    CUDA events recorded on the device's current stream: recording adds no
+    wait on the host. Such a span goes to ``device_totals`` and
+    ``device_counts``, whose sum is the stream's busy time, and stays out
+    of the host spans around it. Every other span (all of them without a
+    CUDA stream) is timed by the host clock into ``totals``; a span opened
+    inside another is charged to itself only, so that the totals add up to
+    the wall time they cover. Spans are folded in by ``resolve()``, which
+    reads the events: call it once the path has waited for the device.
     """
 
     def __init__(self, device=None):
@@ -88,37 +91,55 @@ class SketchTimer(StageTimer):
             self._stream = torch.cuda.current_stream(device)
         self._spans: List[_Span] = []
         self._open: List[_Span] = []
+        self._device_spans: List[_Span] = []
+        self.device_totals: Dict[str, float] = defaultdict(float)
+        self.device_counts: Dict[str, int] = defaultdict(int)
 
     @contextlib.contextmanager
     def stage(self, name: str, device: bool = False):
         span = _Span(name)
-        if self._open:
-            self._open[-1].children.append(span)
-        self._spans.append(span)
-        self._open.append(span)
-        timed = device and self._stream is not None
-        if timed:
+        if device and self._stream is not None:
             import torch
 
             span.events = (torch.cuda.Event(enable_timing=True),
                            torch.cuda.Event(enable_timing=True))
+            self._device_spans.append(span)
             span.events[0].record(self._stream)
+            try:
+                yield
+            finally:
+                span.events[1].record(self._stream)
+            return
+        if self._open:
+            self._open[-1].children.append(span)
+        self._spans.append(span)
+        self._open.append(span)
         t0 = time.monotonic()
         try:
             yield
         finally:
             self._open.pop()
-            if timed:
-                span.events[1].record(self._stream)
-            else:
-                span.seconds = time.monotonic() - t0
+            span.seconds = time.monotonic() - t0
 
     def resolve(self) -> None:
         for span in self._spans:
-            own = span.elapsed() - sum(c.elapsed() for c in span.children)
+            own = span.seconds - sum(c.seconds for c in span.children)
             self.totals[span.name] += own
             self.counts[span.name] += 1
-        self._spans = []
+        for span in self._device_spans:
+            self.device_totals[span.name] += span.elapsed()
+            self.device_counts[span.name] += 1
+        self._spans, self._device_spans = [], []
+
+    def report(self) -> str:
+        """The host spans, then (on a CUDA device) the device spans under a
+        line with their sum, the stream's busy time."""
+        text = super().report()
+        if self.device_totals:
+            busy = sum(self.device_totals.values())
+            text += (f"\ndevice spans (CUDA events; busy {busy:.3f}s):\n"
+                     + _report(self.device_totals, self.device_counts))
+        return text
 
 
 @contextlib.contextmanager

@@ -411,7 +411,7 @@ def _write_genomes(d, lengths, seed):
 @pytest.mark.cuda
 def test_cuda_stage_timing_logs_device_stages(cuda, tmp_path, monkeypatch):
     """HG_STAGE_TIMING on the card: the table names the device stages, each
-    timed above 0 by CUDA events (read from last_stage_times: the table
+    timed above 0 by CUDA events (read from last_device_times: the table
     rounds to ms), and the .sketch bytes do not change."""
     import logging
 
@@ -422,7 +422,7 @@ def test_cuda_stage_timing_logs_device_stages(cuda, tmp_path, monkeypatch):
 
     def spy(self, *a, **kw):
         out = orig(self, *a, **kw)
-        totals.append(dict(self.last_stage_times))
+        totals.append(dict(self.last_device_times))
         return out
 
     monkeypatch.setattr(Sketcher, "sketch_files", spy)
@@ -471,3 +471,92 @@ def test_cuda_sketch_file_and_codes_match_cpu(cuda, tmp_path):
         a, b = got.sketch_codes(codes), want.sketch_codes(codes)
         assert a["n_hashes"] == b["n_hashes"] > 0 and a["norm2"] == b["norm2"]
         np.testing.assert_array_equal(a["hv"], b["hv"])
+
+
+def _pipeline_groups(rng, n_groups, per_group=2):
+    """Groups of random genomes with N runs, two buckets."""
+    groups = []
+    for i in range(n_groups):
+        g = []
+        for j in range(per_group):
+            codes = rng.integers(0, 4, size=9000 + 5000 * (i % 2) + 300 * j)
+            codes = codes.astype(np.uint8)
+            codes[1000 + j : 1030 + j] = INVALID
+            g.append(packed_from_codes(codes))
+        groups.append(g)
+    return groups
+
+
+def _same(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x["n_hashes"] == y["n_hashes"] and x["norm2"] == y["norm2"]
+        np.testing.assert_array_equal(x["hv"], y["hv"])
+
+
+@pytest.mark.cuda
+def test_cuda_submit_reads_nothing_back(cuda):
+    """No submit reads the card on the host: under set_sync_debug_mode
+    ("error") such a read raises (checked live with .item())."""
+    p = SketchParams(scaled=40, hv_d=1024)
+    sk = Sketcher(p, device=cuda, chunk_positions=4096, batch=2)
+    groups = _pipeline_groups(np.random.default_rng(80), 4)
+    want = [sk.sketch_batch(g) for g in groups]  # builds and warms up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.zeros(1, device=cuda).item()
+        handles = [sk.submit_batch_packed(g) for g in groups]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for h, w in zip(handles, want):
+        _same(sk.collect_batch(h), w)
+
+
+@pytest.mark.cuda
+def test_cuda_collect_in_reverse_equals_sketch_batch(cuda):
+    p = SketchParams(scaled=40, hv_d=1024)
+    sk = Sketcher(p, device=cuda, chunk_positions=4096, batch=2)
+    groups = _pipeline_groups(np.random.default_rng(81), 5)
+    handles = [sk.submit_batch_packed(g) for g in groups]
+    got = sk.collect_batches(handles[::-1])[::-1]
+    for g, res in zip(groups, got):
+        _same(res, sk.sketch_batch(g))
+    cpu = Sketcher(p, device="cpu", chunk_positions=4096, batch=2)
+    _same(got[0], cpu.sketch_batch(groups[0]))
+
+
+@pytest.mark.cuda
+def test_cuda_sketch_files_depth_3_equals_depth_1(cuda, tmp_path):
+    from hypergen_tpu_torch.io.sketch_db import dump_sketch
+
+    paths = _write_genomes(tmp_path / "g", [60_000, 9_000, 70_000, 8_000,
+                                            65_000, 12_000, 7_000], seed=82)
+    p = SketchParams(scaled=40, hv_d=1024)
+    sk = Sketcher(p, device=cuda, chunk_positions=4096, batch=2)
+    out = []
+    for depth in (1, 3):
+        dump_sketch(sk.sketch_files(paths, progress=False,
+                                    pipeline_depth=depth),
+                    tmp_path / f"d{depth}.sketch")
+        out.append((tmp_path / f"d{depth}.sketch").read_bytes())
+        assert sum(sk.last_device_times.values()) > 0
+        assert "collect" in sk.last_stage_times
+    assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+def test_cuda_pinned_buffers_not_overwritten_in_flight(cuda):
+    """pipeline_depth + 2 batches submitted before the first collect: each
+    pack writes a fresh pinned buffer while the earlier uploads may still
+    be in flight, and every result equals its batch sketched alone."""
+    depth = 3
+    p = SketchParams(scaled=40, hv_d=1024)
+    sk = Sketcher(p, device=cuda, chunk_positions=4096, batch=2)
+    groups = _pipeline_groups(np.random.default_rng(83), depth + 2)
+    handles = [sk.submit_batch_packed(g) for g in groups]
+    assert all(h.host.buf.is_pinned() for h in handles)
+    got = sk.collect_batches(handles)
+    for g, res in zip(groups, got):
+        _same(res, sk.sketch_batch(g))

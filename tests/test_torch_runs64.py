@@ -151,5 +151,5 @@ def test_prepare_batch_refuses_runs_at_2_31(run, raises):
         with pytest.raises(ValueError, match="below 2\\^31"):
             sk._prepare_batch([g], 2)
     else:
-        _, runs, _ = sk._prepare_batch([g], 2)
+        runs = sk._prepare_batch([g], 2).runs
         assert runs[0, 0].tolist() == list(run)

@@ -103,10 +103,10 @@ def test_cell_cap_ladder_matches_jax():
     genomes = [g0, _random_genome(rng, 5000)]
     C = 4096
     sk = ts.Sketcher(p, device="cpu", chunk_positions=C)
-    words, _, n_pos = sk._prepare_batch(
-        [packed_from_codes(g) for g in genomes], 4)
+    host = sk._prepare_batch([packed_from_codes(g) for g in genomes], 4)
     *_, cell_max = hash_packed_rows(
-        torch.from_numpy(words), torch.from_numpy(n_pos), 4, C, p.ksize,
+        torch.from_numpy(host.words), torch.from_numpy(host.n_pos), 4, C,
+        p.ksize,
         p.seed, p.threshold, cells=sk.cells, cap=sk.cell_cap,
     )
     assert int(cell_max.max()) > sk.cell_cap  # the ladder must climb

@@ -22,9 +22,11 @@ from hypergen_tpu_torch.models.sketcher import Sketcher
 from hypergen_tpu_torch.params import SketchParams
 from hypergen_tpu_torch.utils import timing as ttiming
 
-# the sketch step's stages on a folder of small genomes (one batch route)
-BATCH_STAGES = {"io_pool", "fasta_read", "pack", "upload", "hash", "compact",
-                "distinct", "encode", "compress"}
+# the sketch step's stages on a folder of small genomes (one batch route):
+# without a CUDA stream the device spans are host spans too
+BATCH_STAGES = {"io_pool", "fasta_read", "pack", "dispatch", "upload", "hash",
+                "compact", "distinct", "encode", "download", "collect",
+                "compress"}
 
 
 class _Clock:
