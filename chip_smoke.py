@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Run from the root of the repository on a machine with a CUDA card and the
-CUDA toolkit. It builds the hand-written kernels K1 and K2 and the native
-FASTA parser from csrc/, prints each kernel's registers, shared memory and
-occupancy as the CUDA runtime reports them, checks each kernel bit for bit
-against its plain PyTorch version and times it alone (outputs allocated
-beforehand) and through its wrapper, drives `sketch` and
+CUDA toolkit. It builds the hand-written kernels (K1 and K2, and the HV
+encode) and the native FASTA parser from csrc/, prints each kernel's
+registers, shared memory and occupancy as the CUDA runtime reports them,
+checks each kernel bit for bit against its plain PyTorch version and times
+it alone (outputs allocated beforehand) and through its wrapper, drives
+`sketch` and
 `dist` through the port's CLI on 16 synthetic 4.19 Mbp genomes, and checks
 the card's output files against the port's CPU run byte for byte. Then it
 drives the huge-genome path on a synthetic 134 Mbp (2^27 bp) plant-scale
@@ -41,8 +42,11 @@ torch.cuda.set_sync_debug_mode("error") and collected in reverse order,
 equal to phase 5's .sketch; a cell-cap and a compaction-width retry at
 collect, equal to the CPU; sketch_files of 128 genomes at pipeline_depth 1
 and 3, alternated, with wall, device busy time and idle share, the bytes
-identical. Every phase prints its lines; any failure raises and exits
-non-zero before the last line. The last two lines are the kernel table
+identical. Phase 16 holds the encode kernel to its plain version at the
+16-genome step's inputs, the 2^27 bp one-row step's and the 2.18 Gbp
+genome's tiled encode, and at its wrap cases; phases 5, 9, 10, 14 and 15
+count its launches on every route that encodes. Every phase prints its
+lines; any failure raises and exits non-zero before the last line. The last two lines are the kernel table
 and the result, each one JSON object.
 """
 
@@ -101,6 +105,18 @@ DEVICE = "cuda"
 SOURCE = "hypergen_tpu_torch/csrc/hash_kernel.cu"
 K1_REPLACES = "hypergen_tpu/ops/pallas/hash_kernel.py:219"
 K2_REPLACES = "hypergen_tpu/ops/pallas/hash_kernel.py:158"
+ENCODE_SOURCE = "hypergen_tpu_torch/csrc/encode_kernel.cu"
+# XLA code, no pallas_call: encode_hv with hv_to_i16 (:149) and
+# hv_norm2_i32 (:155), fused into the JAX package's sketch step
+ENCODE_REPLACES = "hypergen_tpu/ops/encode.py:95"
+# the 2,181,038,080 bp genome's distinct hashes (phase 14): the size of
+# its tiled route's one encode
+P4_HASHES = 1_453_769
+# 32-bit multiply-adds of one (valid hash, wyrng word) pair of the encode:
+# the one 64 x 64 -> 128-bit product that wymum needs, four 32 x 32 -> 64
+# partial products (the low half falls out of the same partials; the
+# carries and the offset's add are adds on the ALU pipe, not counted)
+ENCODE_MADS = 4
 # Bounds, from NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM; integer
 # multiply-adds at 64 INT32 lanes per SM, half the 128 FP32 lanes behind the
 # 67 TFLOP/s float32 rate (two flops per FMA): 67e12 / 4 per second.
@@ -177,6 +193,22 @@ def kernel_resources(lib, chunks: bool, k: int) -> str:
     regs, smem, blocks, threads, per_sm = out
     return (f"{regs} registers, {smem} B static shared memory, {blocks} "
             f"blocks of {threads} threads an SM (occupancy "
+            f"{blocks * threads / per_sm:.3f})")
+
+
+def encode_resources(hv_d: int) -> str:
+    """Registers, shared memory and occupancy of the encode kernel at
+    hv_d, as the CUDA runtime reports them for card 0."""
+    import ctypes
+
+    from hypergen_tpu_torch.ops.kernels import build
+
+    out = (ctypes.c_int * 6)()
+    err = build.load("encode_kernel").hg_encode_resources(hv_d, out)
+    check(err == 0, f"hg_encode_resources: CUDA error {err}")
+    regs, smem, dyn, blocks, threads, per_sm = out
+    return (f"{regs} registers, {smem} B static + {dyn} B dynamic shared "
+            f"memory, {blocks} blocks of {threads} threads an SM (occupancy "
             f"{blocks * threads / per_sm:.3f})")
 
 
@@ -357,21 +389,26 @@ def kernel_vs_plain(torch):
 
 def main_path(torch, tmp: Path):
     """Phase 5: sketch + dist of 16 genomes through the CLI on the card.
-    Returns (genomes, K1 launches of the run)."""
+    Returns (genomes, K1 launches of the run, encode launches)."""
+    from hypergen_tpu_torch.ops.kernels.encode_kernel import encode_hv_i16
     from hypergen_tpu_torch.ops.kernels.hash_kernel import hash_packed_rows
 
     gdir = tmp / "genomes"
     gdir.mkdir()
     genomes = write_genomes(gdir)
     db, tsv = tmp / "db.sketch", tmp / "ani.tsv"
-    hash_packed_rows.launches = 0
+    hash_packed_rows.launches = encode_hv_i16.launches = 0
     with sketch_calls() as calls:
         sketch_s = run_cli(["sketch", "-p", str(gdir), "-o", str(db),
                             "-D", DEVICE])
     dist_s = run_cli(["dist", "-r", str(db), "-q", str(db), "-o", str(tsv),
                       "-a", "85", "-D", DEVICE])
     launches = hash_packed_rows.launches
+    enc_launches = encode_hv_i16.launches
     check(launches > 0, "the main path launched no K1 kernel")
+    check(enc_launches == launches,
+          f"the main path launched the encode kernel {enc_launches} times, "
+          f"K1 {launches} times: one each a step")
     rows = read_tsv(tsv)
     n = len(genomes)
     pairs = n * (n - 1) // 2
@@ -396,10 +433,11 @@ def main_path(torch, tmp: Path):
     phase(5, f"sketch {n} x {GENOME_BP} bp in {sketch_s:.3f} s "
              f"({n / sketch_s:.3f} genomes/s); dist {pairs} pairs in "
              f"{dist_s:.3f} s ({pairs / dist_s:.1f} pairs/s); "
-             f"{len(rows)} pairs >= 85; K1 launches {launches}")
+             f"{len(rows)} pairs >= 85; K1 launches {launches}, encode "
+             f"launches {enc_launches}")
     phase(5, stage_text("the process's first sketch (CLI, pipeline_depth 3)",
                         *calls[-1]))
-    return genomes, launches
+    return genomes, launches, enc_launches
 
 
 def card_vs_cpu(tmp: Path, genomes) -> None:
@@ -575,6 +613,7 @@ def huge_genome(torch, tmp: Path):
     )
     from hypergen_tpu_torch.io.sketch_db import load_sketch
     from hypergen_tpu_torch.models import sketcher as sm
+    from hypergen_tpu_torch.ops.kernels.encode_kernel import encode_hv_i16
     from hypergen_tpu_torch.ops.kernels.hash_kernel import (
         hash_chunks, hash_packed_rows, hash_packed_rows_plain,
     )
@@ -611,24 +650,28 @@ def huge_genome(torch, tmp: Path):
 
     cards = torch.cuda.device_count()
     tiles = -(-n_chunks // max(1, sk.seqpar_min_chunks // 8))
-    # (name, route, K1 launches, K2 launches it makes); the CLI takes the
-    # one-row batch on one card and on several
+    # (name, route, K1, K2 and encode launches it makes); the CLI takes
+    # the one-row batch on one card and on several; seqpar encodes a slab
+    # a shard, the tiled route once
     routes = [
         (f"CLI sketch (one-row K1 batch, {cards} card(s), FASTA parse "
-         f"included)", cli, 1, 0),
+         f"included)", cli, 1, 0, 1),
         ("seqpar on [cuda:0]",
-         lambda: sketch_codes_seqpar(codes, p, [card]), 0, 1),
-        (K2_ROUTE, lambda: sketch_codes_seqpar(codes, p, [card] * 4), 0, 4),
-        ("sketch_packed_tiled", lambda: sk.sketch_packed_tiled(g), 
-         -(-tiles // sk.batch), 0),
-        ("one-row K1 batch", lambda: sk.sketch_batch([g])[0], 1, 0),
+         lambda: sketch_codes_seqpar(codes, p, [card]), 0, 1, 1),
+        (K2_ROUTE, lambda: sketch_codes_seqpar(codes, p, [card] * 4), 0, 4,
+         4),
+        ("sketch_packed_tiled", lambda: sk.sketch_packed_tiled(g),
+         -(-tiles // sk.batch), 0, 1),
+        ("one-row K1 batch", lambda: sk.sketch_batch([g])[0], 1, 0, 1),
     ]
     if cards > 1:
         routes.append((f"seqpar on all {cards} cards",
-                       lambda: sketch_codes_seqpar(codes, p), 0, cards))
+                       lambda: sketch_codes_seqpar(codes, p), 0, cards,
+                       cards))
     results, k2_launches = [], {}
-    for name, fn, want_k1, want_k2 in routes:
+    for name, fn, want_k1, want_k2, want_enc in routes:
         hash_packed_rows.launches = hash_chunks.launches = 0
+        encode_hv_i16.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(card)
         t0 = time.monotonic()
@@ -636,15 +679,17 @@ def huge_genome(torch, tmp: Path):
         torch.cuda.synchronize()
         secs = time.monotonic() - t0
         k1, k2 = hash_packed_rows.launches, hash_chunks.launches
+        enc = encode_hv_i16.launches
         peak = torch.cuda.max_memory_allocated(card)
-        check(k1 == want_k1 and k2 == want_k2,
-              f"{name}: launches K1 {k1}, K2 {k2}, want {want_k1}, {want_k2}")
+        check((k1, k2, enc) == (want_k1, want_k2, want_enc),
+              f"{name}: launches K1 {k1}, K2 {k2}, encode {enc}, want "
+              f"{want_k1}, {want_k2}, {want_enc}")
         k2_launches[name] = k2
         results.append(res)
         phase(9, f"{name}: {secs:.3f} s, {HUGE_BP / 1e6 / secs:.1f} Mbp/s; "
                  f"n_hashes {res['n_hashes']}, norm2 {res['norm2']}; "
-                 f"launches K1 {k1}, K2 {k2}; peak allocated on cuda:0 "
-                 f"{peak / 2**20:.1f} MiB")
+                 f"launches K1 {k1}, K2 {k2}, encode {enc}; peak allocated "
+                 f"on cuda:0 {peak / 2**20:.1f} MiB")
     ref = results[1]
     for (name, *_), res in zip(routes, results):
         check(np.array_equal(res["hv"], ref["hv"])
@@ -774,6 +819,7 @@ def huge_card_vs_cpu(torch, tmp: Path) -> None:
     from hypergen_tpu_torch import SketchParams
     from hypergen_tpu_torch.io.fastx import codes_from_packed, read_genome_packed
     from hypergen_tpu_torch.models import sketcher as sm
+    from hypergen_tpu_torch.ops.kernels.encode_kernel import encode_hv_i16
     from hypergen_tpu_torch.ops.kernels.hash_kernel import (
         hash_chunks, hash_packed_rows,
     )
@@ -785,9 +831,10 @@ def huge_card_vs_cpu(torch, tmp: Path) -> None:
     codes = codes_from_packed(g)
     p = SketchParams()
     card = torch.device(DEVICE, 0)
-    hash_chunks.launches = 0
+    hash_chunks.launches = encode_hv_i16.launches = 0
     a = sketch_codes_seqpar(codes, p, [card] * 2)
-    check(hash_chunks.launches == 2, "seqpar on the card launched no K2")
+    check(hash_chunks.launches == 2 and encode_hv_i16.launches == 2,
+          "seqpar on the card launched K2 or the encode not once a shard")
     b = sketch_codes_seqpar(codes, p, ["cpu"] * 2)
     check(np.array_equal(a["hv"], b["hv"]) and a["norm2"] == b["norm2"]
           and a["n_hashes"] == b["n_hashes"], "seqpar: card != CPU")
@@ -827,6 +874,116 @@ def huge_card_vs_cpu(torch, tmp: Path) -> None:
               f"1 GiB of the card free "
               f"{'seqpar' if cards > 1 else 'tiled'}; tiled on the CPU), "
               f"identical on the card and the CPU; n_hashes {a['n_hashes']}")
+
+
+# -- phase 16: the encode kernel -----------------------------------------------
+
+def encode_bound(h, valid, hv_d: int):
+    """The encode's bound on these inputs: hashes and flags read once, the
+    int16 HV and the norms written once; ENCODE_MADS multiply-adds for each
+    valid hash and wyrng word."""
+    B = h.shape[0]
+    n_bytes = h.numel() * 8 + valid.numel() + B * hv_d * 2 + B * 4
+    return bound(n_bytes, int(valid.sum()) * (hv_d // 64) * ENCODE_MADS)
+
+
+def encode_vs_plain(torch, tmp: Path) -> dict:
+    """Phase 16: the encode kernel against its plain version, bit for bit
+    (tolerance 0), and timed alone (into outputs allocated beforehand),
+    through its wrapper and plain (CUDA events, median of 12; plain 3 at
+    (c)), beside its bound, at (a) the 16-genome step's inputs, taken from
+    a step over 8 of phase 5's genomes (8 x 6,144), (b) the 2^27 bp
+    genome's one-row step (1 x 179,712), (c) P4_HASHES all-valid hashes,
+    the 2.18 Gbp genome's tiled encode; then at the wrap cases (one hash
+    40,000 times: the int16 and int32 wraps; an empty row; D = 256).
+    Returns the numbers of the kernels line."""
+    import numpy as np
+
+    from hypergen_tpu_torch import SketchParams
+    from hypergen_tpu_torch.io.fastx import read_genome_packed
+    from hypergen_tpu_torch.io.sketch_db import load_sketch
+    from hypergen_tpu_torch.models.sketcher import Sketcher
+    from hypergen_tpu_torch.ops.kernels import encode_kernel as ek
+
+    p = SketchParams()
+    sk = Sketcher(p, device=DEVICE)
+
+    def step_inputs(genomes):
+        """The encode's inputs in a step over `genomes`: its sorted hashes
+        and their first-occurrence mask."""
+        n_chunks = max(sk._bucket(g.length) for g in genomes)
+        hs, first = sk._submit(genomes, n_chunks, hashes=True).device_out[:2]
+        torch.cuda.synchronize()
+        return hs, first
+
+    names = [fs.file_str for fs in load_sketch(tmp / "db.sketch")]
+    rng = np.random.default_rng(SEED + 16)
+    tiled = torch.from_numpy(np.unique(rng.integers(
+        0, 2**64, size=P4_HASHES, dtype=np.uint64)).view(np.int64))[None]
+    tiled = tiled.to(DEVICE)
+    shapes = {
+        "a": ("the 16-genome step",
+              *step_inputs([read_genome_packed(n) for n in names[:8]]), 12),
+        "b": (f"the {HUGE_BP} bp one-row step",
+              *step_inputs([read_genome_packed(tmp / "huge" / "plant.fna")]),
+              12),
+        "c": ("the 2.18 Gbp genome's tiled encode", tiled,
+              torch.ones_like(tiled, dtype=torch.bool), 3),
+    }
+    out, worst = {}, 0
+    for key, (label, h, valid, plain_runs) in shapes.items():
+        got = ek.encode_hv_i16(h, valid, p.hv_d)
+        want = ek.encode_hv_i16_plain(h, valid, p.hv_d)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        check(same and err == 0, f"encode {label}: kernel != plain "
+                                 f"(err {err})")
+        worst = max(worst, err)
+        outs = ek.encode_outputs(h.shape[0], p.hv_d, h.device)
+        t = {
+            "shape": f"{h.shape[0]} x {h.shape[1]}",
+            "valid": int(valid.sum()),
+            "ms": time_ms(torch, lambda: ek.launch(outs, h, valid, p.hv_d)),
+            "wrapper_ms": time_ms(
+                torch, lambda: ek.encode_hv_i16(h, valid, p.hv_d)),
+            "plain_ms": time_ms(
+                torch, lambda: ek.encode_hv_i16_plain(h, valid, p.hv_d),
+                runs=plain_runs, warmup=1),
+        }
+        t["bound_ms"], t["bound_by"] = encode_bound(h, valid, p.hv_d)
+        out[key] = t
+        phase(16, f"encode ({key}) {label}, {t['shape']} at D={p.hv_d}, "
+                  f"{t['valid']} valid: kernel and plain bit-identical; "
+                  f"kernel alone {t['ms']:.4f} ms, wrapper "
+                  f"{t['wrapper_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms "
+                  f"(CUDA events, median of 12, plain {plain_runs}); bound "
+                  f"{t['bound_ms']:.6f} ms by {t['bound_by']}")
+    # the wraps: one hash 40,000 times in row 0, row 1 empty, 300,000
+    # all-valid hashes in row 2 (several tiles a slab), at D 256 and 4096
+    h = torch.from_numpy(np.sort(rng.integers(
+        0, 2**63, size=(3, 300_000), dtype=np.uint64).view(np.int64)))
+    h[0, :40_000] = h[0, 0]
+    valid = torch.ones_like(h, dtype=torch.bool)
+    valid[0, 40_000:] = False
+    valid[1] = False
+    h, valid = h.to(DEVICE), valid.to(DEVICE)
+    for hv_d in (256, 4096):
+        got = ek.encode_hv_i16(h, valid, hv_d)
+        want = ek.encode_hv_i16_plain(h, valid, hv_d)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)) and err == 0,
+              f"encode wrap case at D={hv_d}: kernel != plain (err {err})")
+        check(set(got[0][0].abs().tolist()) == {65_536 - 40_000}
+              and int(got[1][1]) == 0
+              and (got[0][0].to(torch.int64) ** 2).sum() > 2**31,
+              f"encode wrap case at D={hv_d}: the wraps did not happen")
+        worst = max(worst, err)
+    phase(16, f"encode wrap cases at D=256 and 4096 (one hash 40,000 times: "
+              f"+-40000 -> -+25536, norm^2 above 2^31; an empty row; "
+              f"300,000 hashes in a row): kernel and plain bit-identical")
+    return {"max_abs_err": worst, **out}
 
 
 # -- phase 12: the database path ----------------------------------------------
@@ -1616,7 +1773,7 @@ def p4_genome(torch, tmp: Path) -> dict:
     to a reference that needs no run list: seqpar over [cuda:0] x 8 on the
     codes that codes_from_records makes from the records in memory (K2
     counts the runs from the codes). Every route's numbers are printed
-    before any check. Returns the K1 and K2 launches of the CLI run."""
+    before any check. Returns each route's (K1, K2, encode) launches."""
     import os
     import shutil
 
@@ -1628,6 +1785,7 @@ def p4_genome(torch, tmp: Path) -> dict:
     )
     from hypergen_tpu_torch.io.sketch_db import load_sketch
     from hypergen_tpu_torch.models import sketcher as sm
+    from hypergen_tpu_torch.ops.kernels.encode_kernel import encode_hv_i16
     from hypergen_tpu_torch.ops.kernels.hash_kernel import (
         hash_chunks, hash_packed_rows,
     )
@@ -1660,16 +1818,18 @@ def p4_genome(torch, tmp: Path) -> dict:
 
     def route(key, name, fn):
         hash_packed_rows.launches = hash_chunks.launches = 0
+        encode_hv_i16.launches = 0
         torch.cuda.synchronize()
         t0 = time.monotonic()
         res = fn()
         torch.cuda.synchronize()
         secs = time.monotonic() - t0
-        launches = (hash_packed_rows.launches, hash_chunks.launches)
+        launches = (hash_packed_rows.launches, hash_chunks.launches,
+                    encode_hv_i16.launches)
         results[key] = (name, res, launches)
         phase(14, f"{name}: {secs:.3f} s; n_hashes {res['n_hashes']}, norm2 "
                   f"{res['norm2']}; launches K1 {launches[0]}, K2 "
-                  f"{launches[1]}")
+                  f"{launches[1]}, encode {launches[2]}")
 
     route("reference", f"reference: seqpar on [cuda:0] x {P4_SEQPAR_SHARDS}, "
           f"codes from the records in memory",
@@ -1716,12 +1876,18 @@ def p4_genome(torch, tmp: Path) -> dict:
     on = ("seqpar" if cli_launches[1] else
           "the one-row batch" if cli_launches[0] == 1 else "tiles")
     n_tiles = -(-(length - p.ksize + 1) // (sk.seqpar_min_chunks // 8 * sk.C))
-    want = (0, cards) if cards > 1 else (-(-n_tiles // sk.batch), 0)
+    # seqpar encodes a slab a card, the tiled route once
+    want = (0, cards, cards) if cards > 1 else (-(-n_tiles // sk.batch), 0, 1)
     phase(14, f"the CLI took {on}; host peak resident {host_peak_gib():.2f} "
               f"GiB")
 
-    check(cli_launches == want, f"CLI launches (K1, K2) {cli_launches}, want "
-                                f"{want} ({n_tiles} tiles)")
+    check(cli_launches == want, f"CLI launches (K1, K2, encode) "
+                                f"{cli_launches}, want {want} ({n_tiles} "
+                                f"tiles)")
+    check(results["tiled"][2][2] == 1
+          and results["reference"][2][2] == P4_SEQPAR_SHARDS,
+          f"encode launches: tiled {results['tiled'][2][2]}, seqpar "
+          f"{results['reference'][2][2]}; want 1 and {P4_SEQPAR_SHARDS}")
     check(runs_ok, "read_genome_packed: the runs are not the int64 runs "
                    "of the genome")
     check(same_codes, "codes_from_packed != codes_from_records")
@@ -1748,10 +1914,11 @@ def stage_table(torch, tmp: Path, genomes) -> None:
     STAGE_SUM_TOLERANCE of the sketch_files wall, every device stage of
     the step timed, the .sketch bytes equal to the run without the switch;
     then one HG_TRACE_DIR run of the 16 genomes, whose trace must name
-    K1."""
+    K1 and the encode kernel."""
     import collections
     import os
 
+    from hypergen_tpu_torch.ops.kernels.encode_kernel import encode_hv_i16
     from hypergen_tpu_torch.ops.kernels.hash_kernel import hash_packed_rows
 
     cells = tmp / "stage16"
@@ -1783,7 +1950,7 @@ def stage_table(torch, tmp: Path, genomes) -> None:
 
     trace_dir = tmp / "trace"
     os.environ["HG_TRACE_DIR"] = str(trace_dir)
-    hash_packed_rows.launches = 0
+    hash_packed_rows.launches = encode_hv_i16.launches = 0
     try:
         run_cli(["sketch", "-p", str(cells), "-o", str(tmp / "traced.sketch"),
                  "-D", DEVICE])
@@ -1795,6 +1962,9 @@ def stage_table(torch, tmp: Path, genomes) -> None:
     kernels = [e for e in events if e.get("cat") == "kernel"]
     k1 = [e for e in kernels if "rolling_packed_kernel" in e.get("name", "")]
     check(k1, f"the trace {trace.name} names no K1 launch")
+    enc = [e for e in kernels if "encode_hv_kernel" in e.get("name", "")]
+    tail = [e for e in kernels if "encode_tail_kernel" in e.get("name", "")]
+    check(enc and tail, f"the trace {trace.name} names no encode kernel")
     top = collections.Counter(e["name"][:60] for e in kernels).most_common(4)
     # the device's own time: the kernels' and copies' durations, without
     # the waits for the host's next launch that a CUDA-event span includes
@@ -1803,7 +1973,11 @@ def stage_table(torch, tmp: Path, genomes) -> None:
     phase(14, f"HG_TRACE_DIR: {trace.name}, {trace.stat().st_size} B, "
               f"{len(events)} events, {len(kernels)} kernel events, {len(k1)} "
               f"of them K1 ({sum(e.get('dur', 0) for e in k1):.1f} us; K1 "
-              f"launches by its counter {launches}); kernels' own time "
+              f"launches by its counter {launches}), {len(enc)} the encode "
+              f"kernel ({sum(e.get('dur', 0) for e in enc):.1f} us) and "
+              f"{len(tail)} its tail ({sum(e.get('dur', 0) for e in tail):.1f}"
+              f" us; encode launches by its counter "
+              f"{encode_hv_i16.launches}); kernels' own time "
               f"{own[0]:.3f} ms, {len(copies)} copies {own[1]:.3f} ms; most "
               f"frequent kernels {top}")
 
@@ -1849,13 +2023,15 @@ def pipelined(torch, tmp: Path) -> dict:
     repeat-rich genome (compaction width), equal to the CPU. (c)
     sketch_files of 128 x 4.19 Mbp at pipeline_depth 1 and 3, alternated:
     wall, genomes/s, host stages, device busy and idle share, identical
-    bytes. Returns K1's launches in one depth-3 run of (c)."""
+    bytes. Returns K1's and the encode's launches in one depth-3 run of
+    (c)."""
     import numpy as np
 
     from hypergen_tpu_torch import SketchParams
     from hypergen_tpu_torch.io.fastx import packed_from_codes, read_genome_packed
     from hypergen_tpu_torch.io.sketch_db import dump_sketch, load_sketch
     from hypergen_tpu_torch.models.sketcher import Sketcher
+    from hypergen_tpu_torch.ops.kernels.encode_kernel import encode_hv_i16
     from hypergen_tpu_torch.ops.kernels.hash_kernel import hash_packed_rows
 
     p = SketchParams()
@@ -1869,7 +2045,7 @@ def pipelined(torch, tmp: Path) -> dict:
 
     # (a) submit without waiting: the mode is live (a read raises), then
     # the submits under it
-    hash_packed_rows.launches = 0
+    hash_packed_rows.launches = encode_hv_i16.launches = 0
     torch.cuda.set_sync_debug_mode("error")
     try:
         try:
@@ -1888,6 +2064,9 @@ def pipelined(torch, tmp: Path) -> dict:
     collect_s = time.monotonic() - t0
     check(hash_packed_rows.launches == len(groups),
           f"{len(groups)} submits launched K1 {hash_packed_rows.launches} times")
+    check(encode_hv_i16.launches == len(groups),
+          f"{len(groups)} submits launched the encode "
+          f"{encode_hv_i16.launches} times")
     check(all(same_results(a, b) for a, b in zip(got, ref)),
           "a collected batch differs from sketch_batch of its group")
     out = tmp / "p15a.sketch"
@@ -1897,8 +2076,9 @@ def pipelined(torch, tmp: Path) -> dict:
           "the collected batches' .sketch differs from phase 5's")
     phase(15, f"(a) {len(groups)} batches of 2 x {GENOME_BP} bp submitted "
               f"under set_sync_debug_mode('error') (live: .item() raised) in "
-              f"{submit_s * 1e3:.3f} ms, K1 launched {len(groups)} times, no "
-              f"host read of the card; collected in reverse order in "
+              f"{submit_s * 1e3:.3f} ms, K1 and the encode kernel launched "
+              f"{len(groups)} times each, no host read of the card; "
+              f"collected in reverse order in "
               f"{collect_s * 1e3:.3f} ms; each equals sketch_batch of its "
               f"group, and the .sketch equals phase 5's byte for byte")
 
@@ -1937,13 +2117,15 @@ def pipelined(torch, tmp: Path) -> dict:
     phase(15, f"(c) warm-up at depth 3: {time.monotonic() - t0:.4f} s")
     runs = {1: [], 3: []}
     k1 = {1: set(), 3: set()}
+    enc = {1: set(), 3: set()}
     sketches = set()
     for depth in (1, 3) * DEPTH_RUNS:
-        hash_packed_rows.launches = 0
+        hash_packed_rows.launches = encode_hv_i16.launches = 0
         t0 = time.monotonic()
         fs = sk.sketch_files(paths, progress=False, pipeline_depth=depth)
         wall = time.monotonic() - t0
         k1[depth].add(hash_packed_rows.launches)
+        enc[depth].add(encode_hv_i16.launches)
         host, device = dict(sk.last_stage_times), dict(sk.last_device_times)
         out = tmp / "p15c.sketch"
         dump_sketch(fs, out)
@@ -1951,13 +2133,15 @@ def pipelined(torch, tmp: Path) -> dict:
         runs[depth].append((wall, sum(device.values())))
         phase(15, f"(c) depth {depth}: {len(paths)} genomes in {wall:.4f} s, "
                   f"{len(paths) / wall:.3f} genomes/s, K1 launches "
-                  f"{hash_packed_rows.launches}; "
+                  f"{hash_packed_rows.launches}, encode launches "
+                  f"{encode_hv_i16.launches}; "
                   + stage_text("", wall, host, device))
         check(abs(sum(host.values()) / wall - 1) <= STAGE_SUM_TOLERANCE,
               f"depth {depth}: the host stages sum to "
               f"{sum(host.values()):.4f} s of a {wall:.4f} s wall")
     check(len(sketches) == 1, "the .sketch bytes differ across depths or runs")
     check(len(k1[1]) == 1 and k1[1] == k1[3], f"K1 launches vary: {k1}")
+    check(enc == k1, f"encode launches {enc} differ from K1's {k1}")
     med = {dep: statistics.median(w for w, _ in r) for dep, r in runs.items()}
     idle = {dep: [round(1 - b / w, 4) for w, b in r]
             for dep, r in runs.items()}
@@ -1966,10 +2150,11 @@ def pipelined(torch, tmp: Path) -> dict:
               f"{med[3] / med[1]:.3f}); idle share by run: depth 1 {idle[1]}, "
               f"depth 3 {idle[3]}; .sketch bytes identical across "
               f"{2 * DEPTH_RUNS} runs")
-    return {"launches_depth3": k1[3].pop(),
-            "launches_depth3_on": f"sketch_files of {len(paths)} x "
-                                  f"{GENOME_BP} bp at pipeline_depth 3 "
-                                  f"(phase 15)"}
+    on = f"sketch_files of {len(paths)} x {GENOME_BP} bp at pipeline_depth " \
+         f"3 (phase 15)"
+    return {"k1": {"launches_depth3": k1[3].pop(), "launches_depth3_on": on},
+            "encode": {"launches_depth3": enc[3].pop(),
+                       "launches_depth3_on": on}}
 
 
 def main() -> None:
@@ -1993,14 +2178,16 @@ def main() -> None:
     from hypergen_tpu_torch.ops.kernels import build
 
     t0 = time.monotonic()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        libs = list(pool.map(build.build, ("hash_kernel", "fastx")))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        libs = list(pool.map(build.build,
+                             ("hash_kernel", "encode_kernel", "fastx")))
     phase(2, f"built {', '.join(lib.name for lib in libs)} in "
              f"{time.monotonic() - t0:.2f} s; FASTA parser: {fastx.parser()}")
     lib = build.load("hash_kernel")
     for name, chunks in (("K1", False), ("K2", True)):
         phase(2, f"{name} at k=21, t1ha2: "
                  f"{kernel_resources(lib, chunks, 21)}")
+    phase(2, f"encode kernel at D=4096: {encode_resources(4096)}")
 
     worst, (args, kw) = kernel_vs_plain(torch)
 
@@ -2024,10 +2211,14 @@ def main() -> None:
              f"{small_bound[0]:.4f} ms by {small_bound[1]}")
 
     with tempfile.TemporaryDirectory(prefix="hg_smoke_") as tmp:
-        genomes, launches = main_path(torch, Path(tmp))
+        genomes, launches, enc_launches = main_path(torch, Path(tmp))
         card_vs_cpu(Path(tmp), genomes)
         huge = huge_genome(torch, Path(tmp))
         huge_card_vs_cpu(torch, Path(tmp))
+
+        # 16. the encode kernel against its plain version at the step's,
+        # the one-row step's and the tiled route's shapes, and the wraps
+        enc = encode_vs_plain(torch, Path(tmp))
 
         # 12. the database path: search, dist, the dot, .hgdb and hist
         from hypergen_tpu_torch.cli import _load_db
@@ -2068,7 +2259,7 @@ def main() -> None:
         "bound_ms": k1_b[0], "bound_by": k1_b[1], "library_ms": None,
         "one_row": {"shape": "1 x 1024 chunks (2^27 bp)", **k1_one},
         "launches_2_31": {k: v[0] for k, v in p4.items()},
-        **p15,
+        **p15["k1"],
     }, {
         "name": "hash_chunks", "route": "cuda", "source": SOURCE,
         "replaces": K2_REPLACES, "launches": huge["k2_launches"],
@@ -2078,6 +2269,17 @@ def main() -> None:
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": None,
         "launches_2_31": {k: v[1] for k, v in p4.items()},
+    }, {
+        "name": "encode_hv_i16", "route": "cuda", "source": ENCODE_SOURCE,
+        "replaces": ENCODE_REPLACES, "launches": enc_launches,
+        "launches_on": "CLI sketch + dist of 16 genomes (phase 5)",
+        "max_abs_err": enc["max_abs_err"], "ms": enc["a"]["ms"],
+        "wrapper_ms": enc["a"]["wrapper_ms"], "plain_ms": enc["a"]["plain_ms"],
+        "bound_ms": enc["a"]["bound_ms"], "bound_by": enc["a"]["bound_by"],
+        "library_ms": None,
+        "one_row": enc["b"], "tiled_2_31": enc["c"],
+        "launches_2_31": {k: v[2] for k, v in p4.items()},
+        **p15["encode"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

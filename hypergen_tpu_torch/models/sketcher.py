@@ -14,7 +14,8 @@ capacities fixed on the host, so that nothing in it waits for the card:
        width (``ops.compact.compact_to_width``)
     -> run postfilter: drop windows that overlap an invalid run
     -> the distinct survivor hashes of each genome
-    -> wyrng-expand + bundle HV encode, i16 wrap, wrapping-i32 norm^2
+    -> the HV encode with its i16 wrap and wrapping-i32 norm^2
+       (``ops.kernels.encode_kernel``: one CUDA kernel and its tail)
     -> copied to host tensors (pinned on a CUDA device), then an event
 
 ``submit_batch_packed`` returns a handle at once; ``collect_batch`` waits
@@ -65,7 +66,7 @@ from hypergen_tpu_torch.io.fastx import (
 from hypergen_tpu_torch.io.sketch_db import FileSketch
 from hypergen_tpu_torch.params import SketchParams
 from hypergen_tpu_torch.ops.compact import compact_to_width
-from hypergen_tpu_torch.ops.encode import encode_hv, hv_norm2_i32, hv_to_i16
+from hypergen_tpu_torch.ops.kernels.encode_kernel import encode_hv_i16
 from hypergen_tpu_torch.ops.kernels.hash_kernel import (
     MAX_POSITIONS,
     hash_packed_rows,
@@ -78,7 +79,6 @@ log = logging.getLogger("hypergen")
 # a batch (a genome or a tile) has fewer than 2^31 codes
 # (Sketcher._one_row_fits, Sketcher._tile_genome)
 _NO_RUN = np.int32(0x7FFFFFFF)
-ENCODE_BLOCK = 512  # hashes per encode block: bounds the [B, n, D] bit tensor
 
 # Routing of huge genomes on a CUDA device (Sketcher._one_row_fits). A
 # one-row batch's peak allocated memory is its packed words (C/4 bytes a
@@ -320,9 +320,8 @@ class Sketcher:
             norm2, outs = torch.zeros_like(n_hashes), (hs, first)
         else:
             with self._stage("encode", device=True):
-                hv16 = hv_to_i16(
-                    encode_hv(hs, first, p.hv_d, block=ENCODE_BLOCK))
-                norm2, outs = hv_norm2_i32(hv16), (hv16,)
+                hv16, norm2 = encode_hv_i16(hs, first, p.hv_d)
+                outs = (hv16,)
         meta = torch.stack(
             [norm2.to(torch.int64), n_hashes, cell_max.to(torch.int64),
              count], dim=-1)
@@ -487,10 +486,8 @@ class Sketcher:
         merged = np.unique(np.concatenate(parts).view(np.uint64)).view(np.int64)
         h = torch.from_numpy(merged).to(self.device)[None]
         with self._stage("encode", device=True):
-            hv16 = hv_to_i16(encode_hv(
-                h, torch.ones_like(h, dtype=torch.bool), self.params.hv_d,
-                block=ENCODE_BLOCK))
-            norm2 = hv_norm2_i32(hv16)
+            hv16, norm2 = encode_hv_i16(
+                h, torch.ones_like(h, dtype=torch.bool), self.params.hv_d)
         return {"hv": hv16[0].cpu().numpy(), "norm2": int(norm2[0]),
                 "n_hashes": int(merged.shape[0])}
 

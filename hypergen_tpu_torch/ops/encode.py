@@ -39,7 +39,8 @@ def encode_hv(
     for lo in range(0, N, block):
         words = wyrng_words_from_hash(h[:, lo : lo + block], offsets)
         bits = (words[..., None] >> shifts) & 1  # [B, n, W, 64]
-        bits = bits.reshape(B, -1, hv_d) * valid[:, lo : lo + block, None]
+        n = words.shape[1]
+        bits = bits.reshape(B, n, hv_d) * valid[:, lo : lo + n, None]
         acc += bits.sum(dim=1)
     n_valid = valid.sum(dim=-1, keepdim=True)
     return wrap_i32(2 * acc - n_valid)

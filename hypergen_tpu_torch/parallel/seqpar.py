@@ -17,9 +17,11 @@ one process walks the shards, and the collectives become explicit copies:
        tiny: ~positions/scaled hashes)
     -> global sort + first-occurrence dedup (duplicates span shards, so the
        dedup is global)
-    -> each device encodes an equal slab of the distinct hashes (the bundle
-       is a sum over hashes, so the slabs add up exactly)
-    -> the slabs summed on devices[0] (the psum), i16 wrap + norm^2
+    -> each device encodes an equal slab of the distinct hashes into an
+       int16 HV (``encode_hv_i16``, the encode kernel on a card)
+    -> the slabs' int16 HVs summed in int32 on devices[0] and wrapped
+       again, + norm^2 (the psum; ``combine_i16``: the bundle is a sum, and
+       the wrap is mod 2^16, so the slabs add up exactly)
 
 The compaction sizes its output to the true survivor count, so the JAX
 version's ``chunk_cap`` / ``enc_cap`` retry ladder has no counterpart: no
@@ -41,9 +43,12 @@ import numpy as np
 import torch
 
 from hypergen_tpu_torch.io.fastx import INVALID
-from hypergen_tpu_torch.models.sketcher import ENCODE_BLOCK, distinct_hashes
+from hypergen_tpu_torch.models.sketcher import distinct_hashes
 from hypergen_tpu_torch.ops.compact import compact_masked
-from hypergen_tpu_torch.ops.encode import encode_hv, hv_norm2_i32, hv_to_i16
+from hypergen_tpu_torch.ops.kernels.encode_kernel import (
+    combine_i16,
+    encode_hv_i16,
+)
 from hypergen_tpu_torch.ops.kernels.hash_kernel import hash_chunks
 from hypergen_tpu_torch.params import SketchParams
 
@@ -122,17 +127,12 @@ def sketch_codes_seqpar(
     (uniq,), n_hashes = compact_masked(first, hs)
     n = int(n_hashes[0])
     slab = max(-(-n // n_seq), 1)
-    hv32 = torch.zeros((1, params.hv_d), dtype=torch.int64, device=home)
-    for i, d in enumerate(devs):
-        part = uniq[:, i * slab : min((i + 1) * slab, n)]
-        if part.shape[1] == 0:
-            continue
-        part = part.to(d)
-        enc = encode_hv(part, torch.ones_like(part, dtype=torch.bool),
-                        params.hv_d, block=ENCODE_BLOCK)
-        hv32 += enc.to(home)
-    hv16 = hv_to_i16(hv32)
-    norm2 = hv_norm2_i32(hv16)
+    encoded = []
+    for i, d in enumerate(devs):  # an empty slab encodes to zeros
+        part = uniq[:, i * slab : min((i + 1) * slab, n)].to(d)
+        encoded.append(encode_hv_i16(
+            part, torch.ones_like(part, dtype=torch.bool), params.hv_d))
+    hv16, norm2 = combine_i16([hv.to(home) for hv, _ in encoded])
     return {
         "hv": hv16[0].cpu().numpy(),
         "norm2": int(norm2[0]),

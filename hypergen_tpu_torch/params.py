@@ -62,7 +62,7 @@ class SketchParams:
     out_file: Path = Path()
     sketch_method: str = "t1ha2"
     canonical: bool = True
-    device: str = "tpu"
+    device: str = "cuda"
     ksize: int = 21
     seed: int = 123
     scaled: int = 1500
@@ -85,9 +85,9 @@ class SketchParams:
             # "Known divergences"; genomic practice (and every reference
             # default/example) uses k <= 32.
             raise ValueError(
-                f"ksize must be in [1, 32], got {self.ksize}: this "
-                "TPU-native build packs each canonical k-mer into one "
-                "64-bit 2-bit-encoded key on device; the reference CPU "
+                f"ksize must be in [1, 32], got {self.ksize}: the "
+                "PyTorch port's kernels roll each canonical k-mer as one "
+                "64-bit 2-bit-encoded key on the device; the reference CPU "
                 "path allows larger k (see PARITY.md, known divergences)"
             )
         # compression packs 256-lane blocks (reference:src/hd.rs:139-153,

@@ -560,3 +560,96 @@ def test_cuda_pinned_buffers_not_overwritten_in_flight(cuda):
     got = sk.collect_batches(handles)
     for g, res in zip(groups, got):
         _same(res, sk.sketch_batch(g))
+
+
+# -- the encode kernel (csrc/encode_kernel.cu) ---------------------------------
+
+
+def _encode_rows(rng, B, N, frac=0.45):
+    """Step-like encode inputs: each row's sorted hashes with a
+    first-occurrence mask over about `frac` of the width, the rest padding
+    (-1, invalid), as distinct_hashes gives them."""
+    h = rng.integers(0, 2**63, size=(B, N), dtype=np.uint64).view(np.int64)
+    h = np.sort(h, axis=-1)
+    valid = rng.random((B, N)) < frac
+    return torch.from_numpy(np.where(valid, h, -1)), torch.from_numpy(valid)
+
+
+def _encode_same(cuda, h, valid, hv_d):
+    from hypergen_tpu_torch.ops.kernels import encode_kernel as ek
+
+    h, valid = h.to(cuda), valid.to(cuda)
+    before = ek.encode_hv_i16.launches
+    got = ek.encode_hv_i16(h, valid, hv_d)
+    want = ek.encode_hv_i16_plain(h, valid, hv_d)
+    assert ek.encode_hv_i16.launches == before + (h.shape[0] > 0)
+    for x, y in zip(got, want):
+        assert x.device == y.device and torch.equal(x, y)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,hv_d", [(8, 6144, 4096), (3, 1001, 256),
+                                      (1, 179_712, 4096), (2, 130, 8192),
+                                      (5, 0, 512), (0, 130, 256)])
+def test_cuda_encode_kernel_matches_plain(cuda, B, N, hv_d):
+    """The kernel against its plain version, bit for bit, at the 16-genome
+    step's 8 x 6,144 at D = 4096, a ragged D = 256, the 2^27 bp one-row
+    width, a D above one block of words, no hashes at all, and no rows
+    (nothing launched, nothing counted)."""
+    rng = np.random.default_rng(B * N + hv_d)
+    _encode_same(cuda, *_encode_rows(rng, B, N), hv_d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hv_d", [256, 4096])
+def test_cuda_encode_kernel_wraps(cuda, hv_d):
+    """One hash 40,000 times (the int16 wrap and the int32 norm^2 wrap),
+    a row with no valid entry, and 300,000 all-valid hashes in one row
+    (several tiles a slab and the planes' flushes)."""
+    rng = np.random.default_rng(hv_d)
+    h, valid = _encode_rows(rng, 3, 300_000, frac=1.0)
+    h[0, :40_000] = h[0, 0]
+    valid[0, 40_000:] = False
+    valid[1] = False
+    hv16, norm2 = _encode_same(cuda, h, valid, hv_d)
+    assert int(norm2[1]) == 0 and not hv16[1].any()
+    assert set(hv16[0].abs().tolist()) == {65_536 - 40_000}
+
+
+@pytest.mark.cuda
+def test_cuda_encode_kernel_on_every_route(cuda):
+    """The step launches the encode once a submit under
+    set_sync_debug_mode("error"), the tiled route once a genome, seqpar
+    once a slab; all equal the CPU."""
+    from hypergen_tpu_torch.ops.kernels import encode_kernel as ek
+    from hypergen_tpu_torch.parallel.seqpar import sketch_codes_seqpar
+
+    p = SketchParams(scaled=40, hv_d=1024)
+    sk = Sketcher(p, device=cuda, chunk_positions=4096, batch=2)
+    groups = _pipeline_groups(np.random.default_rng(84), 3)
+    want = [sk.sketch_batch(g) for g in groups]  # builds and warms up
+    torch.cuda.synchronize()
+    before = ek.encode_hv_i16.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handles = [sk.submit_batch_packed(g) for g in groups]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ek.encode_hv_i16.launches == before + len(groups)
+    for h, w in zip(handles, want):
+        _same(sk.collect_batch(h), w)
+    codes = np.random.default_rng(85).integers(0, 4, size=60_000)
+    codes = codes.astype(np.uint8)
+    cpu = Sketcher(p, device="cpu", chunk_positions=4096, batch=2)
+    ref = cpu.sketch_codes(codes)
+    for route, n in (("tiled", 1), ("seqpar", 3)):
+        before = ek.encode_hv_i16.launches
+        if route == "tiled":
+            got = sk.sketch_packed_tiled(packed_from_codes(codes),
+                                         tile_chunks=4)
+        else:
+            got = sketch_codes_seqpar(codes, p, [cuda] * 3,
+                                      chunk_positions=4096)
+        assert ek.encode_hv_i16.launches == before + n, route
+        _same([got], [ref])
