@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (hypergen_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--encode-baseline SRC.cu]
 
 Run from the root of the repository on a machine with a CUDA card and the
 CUDA toolkit. It builds the hand-written kernels (K1 and K2, and the HV
@@ -44,7 +44,12 @@ collect, equal to the CPU; sketch_files of 128 genomes at pipeline_depth 1
 and 3, alternated, with wall, device busy time and idle share, the bytes
 identical. Phase 16 holds the encode kernel to its plain version at the
 16-genome step's inputs, the 2^27 bp one-row step's and the 2.18 Gbp
-genome's tiled encode, and at its wrap cases; phases 5, 9, 10, 14 and 15
+genome's tiled encode, and at its wrap cases, times it alone on the card
+(each call queued behind a spin, so that CUDA events bracket the card's
+work and not the host's enqueue) and the host's part of a call, and shows
+one call to be one kernel and no memset under torch.profiler; with
+--encode-baseline it also holds another version of the encode kernel to
+the plain version and times it in turns with the kernel; phases 5, 9, 10, 14 and 15
 count its launches on every route that encodes. Every phase prints its
 lines; any failure raises and exits non-zero before the last line. The last two lines are the kernel table
 and the result, each one JSON object.
@@ -122,6 +127,9 @@ ENCODE_MADS = 4
 # 67 TFLOP/s float32 rate (two flops per FMA): 67e12 / 4 per second.
 HBM_BYTES_PER_S = 3.35e12
 INT32_MAD_PER_S = 67e12 / 4
+# a spin of about 0.5 ms on the card (torch.cuda._sleep), longer than the
+# host takes to enqueue any call that card_ms times behind it
+QUEUE_CYCLES = 1_000_000
 
 
 def phase(n: int, msg: str) -> None:
@@ -166,11 +174,12 @@ def max_abs_err(torch, a, b) -> int:
 
 def t1ha2_mads(k: int) -> int:
     """32-bit integer multiply-adds of one t1ha2 hash of a k-mer, from
-    hash_window in csrc/hash_kernel.cu: NW = ceil(k/8) mixups (a low and a
-    high 64-bit product each) and the final mix (three low products and one
-    high); a low 64x64 product is 3 IMADs, a high one about 8."""
+    hash_window in csrc/hash_kernel.cu: NW = ceil(k/8) mixups, whose low
+    and high halves are one 64 x 64 -> 128-bit product, four 32 x 32 -> 64
+    partial products; the final mix, two low-only products (three partial
+    products each) and one 128-bit product (four): 4 NW + 10."""
     nw = (k + 7) // 8
-    return 3 * (nw + 3) + 8 * (nw + 1)
+    return 4 * nw + 10
 
 
 def bound(n_bytes: int, n_mads: int):
@@ -190,25 +199,26 @@ def kernel_resources(lib, chunks: bool, k: int) -> str:
     out = (ctypes.c_int * 5)()
     err = lib.hg_kernel_resources(int(chunks), k, 0, 1, out)
     check(err == 0, f"hg_kernel_resources: CUDA error {err}")
-    regs, smem, blocks, threads, per_sm = out
-    return (f"{regs} registers, {smem} B static shared memory, {blocks} "
-            f"blocks of {threads} threads an SM (occupancy "
-            f"{blocks * threads / per_sm:.3f})")
+    return resources_text(out)
 
 
-def encode_resources(hv_d: int) -> str:
-    """Registers, shared memory and occupancy of the encode kernel at
-    hv_d, as the CUDA runtime reports them for card 0."""
+def encode_resources() -> str:
+    """Registers, shared memory and occupancy of the encode kernel, as the
+    CUDA runtime reports them for card 0."""
     import ctypes
 
     from hypergen_tpu_torch.ops.kernels import build
 
-    out = (ctypes.c_int * 6)()
-    err = build.load("encode_kernel").hg_encode_resources(hv_d, out)
+    out = (ctypes.c_int * 5)()
+    err = build.load("encode_kernel").hg_encode_resources(out)
     check(err == 0, f"hg_encode_resources: CUDA error {err}")
-    regs, smem, dyn, blocks, threads, per_sm = out
-    return (f"{regs} registers, {smem} B static + {dyn} B dynamic shared "
-            f"memory, {blocks} blocks of {threads} threads an SM (occupancy "
+    return resources_text(out)
+
+
+def resources_text(out) -> str:
+    regs, smem, blocks, threads, per_sm = out
+    return (f"{regs} registers, {smem} B static shared memory, {blocks} "
+            f"blocks of {threads} threads an SM (occupancy "
             f"{blocks * threads / per_sm:.3f})")
 
 
@@ -226,6 +236,43 @@ def time_ms(torch, fn, runs: int = 12, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def card_ms(torch, fns: dict, runs: int = 12, warmup: int = 2) -> dict:
+    """Median milliseconds of the card's work in a call of each of fns
+    (name -> fn) over `runs` rounds, the fns in turns and their order
+    reversed every round. Each call is enqueued behind a spin of
+    QUEUE_CYCLES on the card and bracketed by CUDA events, so the events
+    time the card's work alone, not the host's enqueue (an event pair's
+    own few microseconds included)."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    names = list(fns)
+    times = {k: [] for k in names}
+    for r in range(runs):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(QUEUE_CYCLES)
+            start.record()
+            fns[k]()
+            end.record()
+            torch.cuda.synchronize()
+            times[k].append(start.elapsed_time(end))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Mean microseconds of the host's time in fn() over `calls` calls in a
+    row, the card not waited for between them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / calls * 1e6
 
 
 def k1_times(torch, args, kw, plain_runs: int = 12):
@@ -887,16 +934,65 @@ def encode_bound(h, valid, hv_d: int):
     return bound(n_bytes, int(valid.sum()) * (hv_d // 64) * ENCODE_MADS)
 
 
-def encode_vs_plain(torch, tmp: Path) -> dict:
+def encode_baseline(torch, src: Path):
+    """A maker of calls of another version of the encode kernel, built from
+    `src` with the port's nvcc flags: one with the C interface of the first
+    version, two memsets, an accumulate and a tail kernel
+    (hg_encode_hv_i16(h, valid, B, N, D, scratch, out_hv, out_norm2,
+    stream), scratch u32 [B*D + B]), as in commit dea9f10's
+    hypergen_tpu_torch/csrc/encode_kernel.cu. make(h, valid, hv_d) returns
+    a function that runs it into outputs allocated beforehand."""
+    import ctypes
+    import hashlib
+
+    from hypergen_tpu_torch.ops.kernels import build
+
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = build.BUILD_DIR / f"libencode_baseline_{digest}.so"
+    if not out.exists():
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                        str(src)], check=True, timeout=600)
+    fn = ctypes.CDLL(str(out)).hg_encode_hv_i16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 4
+
+    def make(h, valid, hv_d):
+        B, N = h.shape
+        scratch = torch.empty(B * hv_d + B, dtype=torch.int32,
+                              device=h.device)
+        hv16 = torch.empty((B, hv_d), dtype=torch.int16, device=h.device)
+        norm2 = torch.empty((B,), dtype=torch.int32, device=h.device)
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+
+        def call():
+            err = fn(h.data_ptr(), valid.data_ptr(), B, N, hv_d,
+                     scratch.data_ptr(), hv16.data_ptr(), norm2.data_ptr(),
+                     stream)
+            check(err == 0, f"baseline encode: CUDA error {err}")
+            return hv16, norm2
+        return call
+    return make
+
+
+def encode_vs_plain(torch, tmp: Path, baseline=None) -> dict:
     """Phase 16: the encode kernel against its plain version, bit for bit
-    (tolerance 0), and timed alone (into outputs allocated beforehand),
-    through its wrapper and plain (CUDA events, median of 12; plain 3 at
-    (c)), beside its bound, at (a) the 16-genome step's inputs, taken from
-    a step over 8 of phase 5's genomes (8 x 6,144), (b) the 2^27 bp
-    genome's one-row step (1 x 179,712), (c) P4_HASHES all-valid hashes,
-    the 2.18 Gbp genome's tiled encode; then at the wrap cases (one hash
-    40,000 times: the int16 and int32 wraps; an empty row; D = 256).
-    Returns the numbers of the kernels line."""
+    (tolerance 0), and timed beside its bound at (a) the 16-genome step's
+    inputs, taken from a step over 8 of phase 5's genomes (8 x 6,144), (b)
+    the 2^27 bp genome's one-row step (1 x 179,712), (c) P4_HASHES
+    all-valid hashes, the 2.18 Gbp genome's tiled encode: the kernel alone
+    on the card (card_ms, into outputs allocated beforehand), the wrapper
+    and plain on an idle card (CUDA events around the call, the host's
+    enqueue included), each the median of 12 (plain 3 at (c)); at (a) also
+    the host's microseconds a call of the wrapper, of launch with its
+    outputs given and of the bare C entry. With `baseline` (encode_baseline
+    of another version), that version is held to the plain version too and
+    timed in turns with the kernel. Then one call at (a) is one kernel
+    event and no memset under torch.profiler, and (a) right after (c) on
+    one stream (one ticket buffer) is bit-identical; then the wrap cases
+    (one hash 40,000 times: the int16 and int32 wraps; an empty row;
+    D = 256). Returns the numbers of the kernels line."""
     import numpy as np
 
     from hypergen_tpu_torch import SketchParams
@@ -930,21 +1026,30 @@ def encode_vs_plain(torch, tmp: Path) -> dict:
         "c": ("the 2.18 Gbp genome's tiled encode", tiled,
               torch.ones_like(tiled, dtype=torch.bool), 3),
     }
-    out, worst = {}, 0
+    out, wants, worst = {}, {}, 0
     for key, (label, h, valid, plain_runs) in shapes.items():
         got = ek.encode_hv_i16(h, valid, p.hv_d)
-        want = ek.encode_hv_i16_plain(h, valid, p.hv_d)
+        want = wants[key] = ek.encode_hv_i16_plain(h, valid, p.hv_d)
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want)
         same = all(torch.equal(a, b) for a, b in zip(got, want))
         check(same and err == 0, f"encode {label}: kernel != plain "
                                  f"(err {err})")
         worst = max(worst, err)
-        outs = ek.encode_outputs(h.shape[0], p.hv_d, h.device)
+        outs = ek.encode_outputs(*h.shape, p.hv_d, h.device)
+        alone = {"kernel": lambda: ek.launch(outs, h, valid, p.hv_d)}
+        if baseline is not None:
+            alone["baseline"] = baseline(h, valid, p.hv_d)
+            got = alone["baseline"]()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"baseline encode {label}: != plain")
+        card = card_ms(torch, alone)
         t = {
             "shape": f"{h.shape[0]} x {h.shape[1]}",
+            "blocks": outs[0] * ek.word_groups(p.hv_d) * h.shape[0],
             "valid": int(valid.sum()),
-            "ms": time_ms(torch, lambda: ek.launch(outs, h, valid, p.hv_d)),
+            "ms": card["kernel"],
             "wrapper_ms": time_ms(
                 torch, lambda: ek.encode_hv_i16(h, valid, p.hv_d)),
             "plain_ms": time_ms(
@@ -952,13 +1057,70 @@ def encode_vs_plain(torch, tmp: Path) -> dict:
                 runs=plain_runs, warmup=1),
         }
         t["bound_ms"], t["bound_by"] = encode_bound(h, valid, p.hv_d)
+        base_text = ""
+        if baseline is not None:
+            t["baseline_ms"] = card["baseline"]
+            base_text = (f"; the baseline version alone {card['baseline']:.4f}"
+                         f" ms, in turns with it")
         out[key] = t
         phase(16, f"encode ({key}) {label}, {t['shape']} at D={p.hv_d}, "
-                  f"{t['valid']} valid: kernel and plain bit-identical; "
-                  f"kernel alone {t['ms']:.4f} ms, wrapper "
+                  f"{t['valid']} valid, {outs[0]} slabs a row, {t['blocks']} "
+                  f"blocks: kernel and plain bit-identical; kernel alone on "
+                  f"the card {t['ms']:.4f} ms{base_text}; wrapper "
                   f"{t['wrapper_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms "
-                  f"(CUDA events, median of 12, plain {plain_runs}); bound "
-                  f"{t['bound_ms']:.6f} ms by {t['bound_by']}")
+                  f"(CUDA events, the host's enqueue included); median of "
+                  f"12, plain {plain_runs}; bound {t['bound_ms']:.6f} ms by "
+                  f"{t['bound_by']}")
+    # the host's part of a call at (a): the wrapper (checks, plan, outputs,
+    # ticket buffer, C entry), launch with its outputs given, the C entry
+    h, valid = shapes["a"][1:3]
+    B, N = h.shape
+    outs = ek.encode_outputs(B, N, p.hv_d, h.device)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    tickets = ek.ticket_buffer(B, p.hv_d, h.device, stream)
+    entry_args = (h.data_ptr(), valid.data_ptr(), B, N, p.hv_d, outs[0],
+                  outs[1].data_ptr(), outs[1].numel(), tickets.data_ptr(),
+                  tickets.numel(), outs[2].data_ptr(), outs[3].data_ptr(),
+                  stream)
+    entry = ek._entry()
+    host = {"wrapper": host_us(
+                torch, lambda: ek.encode_hv_i16(h, valid, p.hv_d)),
+            "launch": host_us(
+                torch, lambda: ek.launch(outs, h, valid, p.hv_d)),
+            "entry": host_us(torch, lambda: entry(*entry_args))}
+    out["a"]["host_us"] = host
+    phase(16, f"host time a call at (a), mean of 200 (perf_counter): "
+              f"wrapper {host['wrapper']:.1f} us, launch with its outputs "
+              f"given {host['launch']:.1f} us, the bare C entry "
+              f"{host['entry']:.1f} us: the wrapper adds "
+              f"{host['wrapper'] - host['entry']:.1f} us")
+    # one call is one kernel and no memset, under the profiler (the
+    # ticket buffer of this stream exists already); then (a) right after
+    # (c) on the same stream and ticket buffer, no synchronisation between
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ek.encode_hv_i16(h, valid, p.hv_d)
+        torch.cuda.synchronize()
+    trace = tmp / "encode_one_call.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    memsets = [e for e in events if e.get("cat") == "gpu_memset"]
+    check(len(kernels) == 1 and "encode_hv_kernel" in kernels[0]["name"]
+          and not memsets, f"one encode call under the profiler: kernels "
+                           f"{[e['name'] for e in kernels]}, {len(memsets)} "
+                           f"memsets")
+    got_c = ek.encode_hv_i16(*shapes["c"][1:3], p.hv_d)
+    got_a = ek.encode_hv_i16(h, valid, p.hv_d)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(got_c + got_a,
+                                                wants["c"] + wants["a"])),
+          "encode (a) right after (c) on one stream: kernel != plain")
+    phase(16, f"one encode call at (a) under torch.profiler: 1 kernel event "
+              f"({kernels[0]['name'][:40]}, {kernels[0]['dur']} us), 0 "
+              f"memsets; (a) right after (c) on one stream and ticket "
+              f"buffer: bit-identical to plain")
     # the wraps: one hash 40,000 times in row 0, row 1 empty, 300,000
     # all-valid hashes in row 2 (several tiles a slab), at D 256 and 4096
     h = torch.from_numpy(np.sort(rng.integers(
@@ -1963,8 +2125,8 @@ def stage_table(torch, tmp: Path, genomes) -> None:
     k1 = [e for e in kernels if "rolling_packed_kernel" in e.get("name", "")]
     check(k1, f"the trace {trace.name} names no K1 launch")
     enc = [e for e in kernels if "encode_hv_kernel" in e.get("name", "")]
-    tail = [e for e in kernels if "encode_tail_kernel" in e.get("name", "")]
-    check(enc and tail, f"the trace {trace.name} names no encode kernel")
+    check(enc, f"the trace {trace.name} names no encode kernel")
+    memsets = [e for e in events if e.get("cat") == "gpu_memset"]
     top = collections.Counter(e["name"][:60] for e in kernels).most_common(4)
     # the device's own time: the kernels' and copies' durations, without
     # the waits for the host's next launch that a CUDA-event span includes
@@ -1974,11 +2136,10 @@ def stage_table(torch, tmp: Path, genomes) -> None:
               f"{len(events)} events, {len(kernels)} kernel events, {len(k1)} "
               f"of them K1 ({sum(e.get('dur', 0) for e in k1):.1f} us; K1 "
               f"launches by its counter {launches}), {len(enc)} the encode "
-              f"kernel ({sum(e.get('dur', 0) for e in enc):.1f} us) and "
-              f"{len(tail)} its tail ({sum(e.get('dur', 0) for e in tail):.1f}"
-              f" us; encode launches by its counter "
-              f"{encode_hv_i16.launches}); kernels' own time "
-              f"{own[0]:.3f} ms, {len(copies)} copies {own[1]:.3f} ms; most "
+              f"kernel ({sum(e.get('dur', 0) for e in enc):.1f} us; encode "
+              f"launches by its counter {encode_hv_i16.launches}); kernels' "
+              f"own time {own[0]:.3f} ms, {len(copies)} copies "
+              f"{own[1]:.3f} ms, {len(memsets)} memsets; most "
               f"frequent kernels {top}")
 
 
@@ -2158,6 +2319,15 @@ def pipelined(torch, tmp: Path) -> dict:
 
 
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--encode-baseline", type=Path, metavar="SRC.cu",
+                    help="another version of the encode kernel, with the C "
+                         "interface of its first version, to hold to the "
+                         "plain version and time in turns with the kernel "
+                         "in phase 16 (see encode_baseline)")
+    cli = ap.parse_args()
     t_start = time.monotonic()
     import torch
 
@@ -2187,7 +2357,7 @@ def main() -> None:
     for name, chunks in (("K1", False), ("K2", True)):
         phase(2, f"{name} at k=21, t1ha2: "
                  f"{kernel_resources(lib, chunks, 21)}")
-    phase(2, f"encode kernel at D=4096: {encode_resources(4096)}")
+    phase(2, f"encode kernel: {encode_resources()}")
 
     worst, (args, kw) = kernel_vs_plain(torch)
 
@@ -2218,7 +2388,8 @@ def main() -> None:
 
         # 16. the encode kernel against its plain version at the step's,
         # the one-row step's and the tiled route's shapes, and the wraps
-        enc = encode_vs_plain(torch, Path(tmp))
+        enc = encode_vs_plain(torch, Path(tmp), cli.encode_baseline and
+                              encode_baseline(torch, cli.encode_baseline))
 
         # 12. the database path: search, dist, the dot, .hgdb and hist
         from hypergen_tpu_torch.cli import _load_db

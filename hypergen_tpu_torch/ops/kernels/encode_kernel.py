@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -29,6 +29,18 @@ from hypergen_tpu_torch.ops.encode import encode_hv, hv_norm2_i32, hv_to_i16
 
 PLAIN_BLOCK = 512  # hashes per block of the plain encode: bounds [B, n, D]
 MAX_ROWS = 65535  # the kernel's grid takes a row per z index
+# The kernel's geometry (csrc/encode_kernel.cu, checked against its
+# hg_encode_geometry when the kernel is loaded): a block takes one row, one
+# word group of GROUP_DIMS dimensions and one slab of the row's tiles of
+# TILE hash slots (every S-th tile). The slabs are chosen here: MIN_TILES
+# tiles a slab at least, at most MAX_SLABS a row, and no more than
+# MAX_BLOCKS blocks in all unless one slab a row already gives more.
+TILE = 128
+GROUP_DIMS = 512
+MAX_GROUPS = 65535  # the grid's y dimension
+MAX_SLABS = 64
+MIN_TILES = 8
+MAX_BLOCKS = 2048
 
 
 def _check(h: torch.Tensor, valid: torch.Tensor, hv_d: int) -> None:
@@ -43,8 +55,55 @@ def _check(h: torch.Tensor, valid: torch.Tensor, hv_d: int) -> None:
         raise ValueError("h and valid must be contiguous")
     if hv_d < 64 or hv_d % 64 != 0:
         raise ValueError(f"hv_d must be a positive multiple of 64, got {hv_d}")
+    if word_groups(hv_d) > MAX_GROUPS:
+        raise ValueError(f"hv_d above {MAX_GROUPS * GROUP_DIMS}: {hv_d}")
     if h.shape[0] > MAX_ROWS:
         raise ValueError(f"at most {MAX_ROWS} rows, got {h.shape[0]}")
+
+
+def word_groups(hv_d: int) -> int:
+    """G: the word groups of GROUP_DIMS dimensions that cover hv_d."""
+    return -(-hv_d // GROUP_DIMS)
+
+
+def slab_plan(B: int, N: int, hv_d: int) -> int:
+    """S, the slabs of a row of N slots, for a launch of S * G * B blocks;
+    slab s takes tiles s, s + S, ... S is 1 when the row has fewer than
+    2 * MIN_TILES tiles (N = 0 too: the one launch still writes the zero
+    HVs)."""
+    tiles = -(-N // TILE)
+    rows = max(1, B * word_groups(hv_d))
+    return max(1, min(MAX_SLABS, tiles // MIN_TILES, MAX_BLOCKS // rows))
+
+
+def scratch_words(B: int, S: int, hv_d: int) -> int:
+    """u32 words of a launch's scratch for S slabs a row: each block's sums
+    of its word group's dimensions, [B, G, S, GROUP_DIMS], and each word
+    group's sum of squares, [B, G]."""
+    return B * word_groups(hv_d) * (S * GROUP_DIMS + 1)
+
+
+# the tickets of the kernel's merge, one int32 buffer per (device, stream):
+# zeroed when made or grown, and left zero by every launch
+_tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def ticket_buffer(B: int, hv_d: int, device, stream: int) -> torch.Tensor:
+    """The ticket buffer of (device, stream) with room for B rows at hv_d,
+    made (or grown to the next power of two) with zeros on the current
+    stream when it is missing or too small. Nothing is read back."""
+    if not isinstance(device, torch.device) or device.index is None:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    key = (device, stream)
+    need = B * (word_groups(hv_d) + 1)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(1 << max(need - 1, 1).bit_length(),
+                          dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
 
 
 def _plain(h, valid, hv_d):
@@ -54,39 +113,54 @@ def _plain(h, valid, hv_d):
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    """The kernel's C entry point, built and bound on first use."""
+    """The kernel's C entry point, built and bound on first use; raises if
+    the kernel's geometry is not the one this module plans for."""
     from hypergen_tpu_torch.ops.kernels import build
 
-    fn = build.load("encode_kernel").hg_encode_hv_i16
+    lib = build.load("encode_kernel")
+    geometry = (ctypes.c_int * 3)()
+    lib.hg_encode_geometry(geometry)
+    if tuple(geometry) != (TILE, GROUP_DIMS, MAX_SLABS):
+        raise RuntimeError(f"encode kernel geometry {tuple(geometry)} != "
+                           f"{(TILE, GROUP_DIMS, MAX_SLABS)}")
+    fn = lib.hg_encode_hv_i16
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p,
     ]
     return fn
 
 
-def encode_outputs(B: int, hv_d: int, device):
-    """(scratch, hv16, norm2) for a launch: the u32 accumulator and valid
-    counts [B*hv_d + B] (zeroed by the launch itself) and the outputs, all
+def encode_outputs(B: int, N: int, hv_d: int, device):
+    """(S, scratch, hv16, norm2) for a launch over B rows of N slots: the
+    slab plan, the u32 scratch of scratch_words and the outputs, all
     uninitialised."""
-    return (torch.empty(B * hv_d + B, dtype=torch.int32, device=device),
+    S = slab_plan(B, N, hv_d)
+    return (S,
+            torch.empty(scratch_words(B, S, hv_d), dtype=torch.int32,
+                        device=device),
             torch.empty((B, hv_d), dtype=torch.int16, device=device),
             torch.empty((B,), dtype=torch.int32, device=device))
 
 
 def launch(outs, h, valid, hv_d):
-    """Launch the encode into outs (from encode_outputs) on the current
-    stream; returns (hv16, norm2). Nothing is read back from the card."""
+    """Launch the encode into outs (from encode_outputs for h's shape) on
+    the current stream, with that stream's ticket buffer; returns (hv16,
+    norm2). One kernel for B > 0, none for B = 0; nothing is read back
+    from the card. The C entry refuses a scratch too small for the plan."""
     fn = _entry()
-    scratch, hv16, norm2 = outs
+    S, scratch, hv16, norm2 = outs
     B, N = h.shape
     dev = h.device
     with torch.cuda.device(dev):
-        err = fn(h.data_ptr(), valid.data_ptr(), B, N, hv_d,
-                 scratch.data_ptr(), hv16.data_ptr(), norm2.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        tickets = ticket_buffer(B, hv_d, dev, stream)
+        err = fn(h.data_ptr(), valid.data_ptr(), B, N, hv_d, S,
+                 scratch.data_ptr(), scratch.numel(), tickets.data_ptr(),
+                 tickets.numel(), hv16.data_ptr(), norm2.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"encode kernel launch failed: CUDA error {err}")
     if B > 0:  # the C entry launches nothing for no rows
@@ -95,7 +169,7 @@ def launch(outs, h, valid, hv_d):
 
 
 def _cuda(h, valid, hv_d):
-    return launch(encode_outputs(h.shape[0], hv_d, h.device), h, valid, hv_d)
+    return launch(encode_outputs(*h.shape, hv_d, h.device), h, valid, hv_d)
 
 
 def _for(device: torch.device):

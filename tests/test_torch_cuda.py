@@ -606,7 +606,7 @@ def test_cuda_encode_kernel_matches_plain(cuda, B, N, hv_d):
 def test_cuda_encode_kernel_wraps(cuda, hv_d):
     """One hash 40,000 times (the int16 wrap and the int32 norm^2 wrap),
     a row with no valid entry, and 300,000 all-valid hashes in one row
-    (several tiles a slab and the planes' flushes)."""
+    (many tiles a slab)."""
     rng = np.random.default_rng(hv_d)
     h, valid = _encode_rows(rng, 3, 300_000, frac=1.0)
     h[0, :40_000] = h[0, 0]
@@ -615,6 +615,139 @@ def test_cuda_encode_kernel_wraps(cuda, hv_d):
     hv16, norm2 = _encode_same(cuda, h, valid, hv_d)
     assert int(norm2[1]) == 0 and not hv16[1].any()
     assert set(hv16[0].abs().tolist()) == {65_536 - 40_000}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_cuda_encode_kernel_slab_edge(cuda, edge):
+    """N one below, at and one above 8 tiles in every slab: the last tile
+    ragged, every slab full, and slab 0 with a ninth tile of one slot."""
+    from hypergen_tpu_torch.ops.kernels import encode_kernel as ek
+
+    S = ek.slab_plan(2, 40_000, 4096)
+    assert S > 1
+    N = S * 8 * ek.TILE + edge
+    assert ek.slab_plan(2, N, 4096) == S
+    rng = np.random.default_rng(100 + edge)
+    _encode_same(cuda, *_encode_rows(rng, 2, N, frac=0.8), 4096)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,hv_d", [(3, 5000, 64), (3, 5000, 576),
+                                      (64, 6144, 4096)])
+def test_cuda_encode_kernel_word_groups_and_rows(cuda, B, N, hv_d):
+    """W = 1 and W = 9 (the last word group partial: 1 of 8 words, and
+    1 of 8 in the second group), and 64 rows (the 128-genome batch)."""
+    rng = np.random.default_rng(B + N + hv_d)
+    _encode_same(cuda, *_encode_rows(rng, B, N), hv_d)
+
+
+@pytest.mark.cuda
+def test_cuda_encode_kernel_count_above_u16_in_one_slab(cuda):
+    """One hash 70,000 times in a row that is one slab (256 rows make the
+    plan take one slab a row): every count of the slab passes 65,535.
+    The other rows are empty and encode to zero."""
+    from hypergen_tpu_torch.ops.kernels import encode_kernel as ek
+
+    B, N, hv_d = 256, 70_000, 4096
+    assert ek.slab_plan(B, N, hv_d) == 1
+    h = torch.zeros((B, N), dtype=torch.int64, device=cuda)
+    h[0] = 0x1234_5678_9ABC_DEF
+    valid = torch.zeros((B, N), dtype=torch.bool, device=cuda)
+    valid[0] = True
+    hv16, norm2 = ek.encode_hv_i16(h, valid, hv_d)
+    want = ek.encode_hv_i16_plain(h[:1], valid[:1], hv_d)
+    assert torch.equal(hv16[:1], want[0]) and torch.equal(norm2[:1], want[1])
+    assert not hv16[1:].any() and not norm2[1:].any()
+    assert set(hv16[0].abs().tolist()) == {70_000 - 65_536}
+
+
+@pytest.mark.cuda
+def test_cuda_encode_kernel_no_slots(cuda):
+    """B > 0 rows of N = 0 slots: one launch, zero HVs and norms over
+    outputs that held garbage."""
+    from hypergen_tpu_torch.ops.kernels import encode_kernel as ek
+
+    h = torch.empty((4, 0), dtype=torch.int64, device=cuda)
+    valid = torch.empty((4, 0), dtype=torch.bool, device=cuda)
+    outs = ek.encode_outputs(4, 0, 1024, cuda)
+    outs[2].fill_(7)
+    outs[3].fill_(7)
+    before = ek.encode_hv_i16.launches
+    hv16, norm2 = ek.launch(outs, h, valid, 1024)
+    assert ek.encode_hv_i16.launches == before + 1
+    assert not hv16.any() and not norm2.any()
+
+
+@pytest.mark.cuda
+def test_cuda_encode_kernel_refuses_a_short_scratch(cuda):
+    """A scratch one word short of the plan's size is refused by the C
+    entry before any launch."""
+    from hypergen_tpu_torch.ops.kernels import encode_kernel as ek
+
+    h, valid = _encode_rows(np.random.default_rng(112), 2, 5000)
+    h, valid = h.to(cuda), valid.to(cuda)
+    S, scratch, hv16, norm2 = ek.encode_outputs(2, 5000, 576, cuda)
+    before = ek.encode_hv_i16.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ek.launch((S, scratch[:-1], hv16, norm2), h, valid, 576)
+    assert ek.encode_hv_i16.launches == before
+
+
+def _encode_calls(cuda, rng, n):
+    """n encode inputs of alternating shapes: the 16-genome step's, a
+    one-row slab-heavy one, a partial word group, several rows."""
+    shapes = [(8, 6144, 4096), (1, 179_712, 4096), (3, 1001, 576),
+              (5, 20_000, 1024)]
+    out = []
+    for i in range(n):
+        B, N, hv_d = shapes[i % len(shapes)]
+        h, valid = _encode_rows(rng, B, N)
+        out.append((h.to(cuda), valid.to(cuda), hv_d))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_encode_kernel_tickets_return_to_zero(cuda):
+    """Ten calls of alternating shapes back to back on one stream, with no
+    synchronisation between them, each equal to the plain version: every
+    launch leaves its tickets at zero for the next."""
+    from hypergen_tpu_torch.ops.kernels import encode_kernel as ek
+
+    calls = _encode_calls(cuda, np.random.default_rng(110), 10)
+    torch.cuda.synchronize()
+    got = [ek.encode_hv_i16(*c) for c in calls]
+    for c, (hv16, norm2) in zip(calls, got):
+        want = ek.encode_hv_i16_plain(*c)
+        assert torch.equal(hv16, want[0]) and torch.equal(norm2, want[1])
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    buf = ek.ticket_buffer(1, 4096, calls[0][0].device, stream)
+    assert buf is ek.ticket_buffer(1, 4096, cuda, stream)
+    assert not buf.any()
+
+
+@pytest.mark.cuda
+def test_cuda_encode_kernel_two_streams(cuda):
+    """Calls on two streams in turn, each stream with its own ticket
+    buffer, each equal to the plain version."""
+    from hypergen_tpu_torch.ops.kernels import encode_kernel as ek
+
+    calls = _encode_calls(cuda, np.random.default_rng(111), 6)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    assert streams[0].cuda_stream != streams[1].cuda_stream
+    got = []
+    for i, c in enumerate(calls):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(ek.encode_hv_i16(*c))
+    torch.cuda.synchronize()
+    bufs = [ek.ticket_buffer(1, 64, calls[0][0].device, s.cuda_stream)
+            for s in streams]
+    assert bufs[0].data_ptr() != bufs[1].data_ptr()
+    for c, (hv16, norm2) in zip(calls, got):
+        want = ek.encode_hv_i16_plain(*c)
+        assert torch.equal(hv16, want[0]) and torch.equal(norm2, want[1])
+    assert not any(b.any() for b in bufs)
 
 
 @pytest.mark.cuda

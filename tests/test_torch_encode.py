@@ -7,6 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from hypergen_tpu.ops import encode as jax_encode
 from hypergen_tpu.ops import u64 as ju
@@ -194,3 +196,79 @@ def test_every_route_encodes_through_the_wrapper(route, monkeypatch):
                       batch=2).sketch_batch([packed_from_codes(codes)])[0]
     np.testing.assert_array_equal(got["hv"], ref["hv"])
     assert got["norm2"] == ref["norm2"] and got["n_hashes"] == ref["n_hashes"]
+
+
+# -- the kernel's launch plan and ticket buffer, decided on the host -----------
+
+
+@settings(max_examples=300, deadline=None)
+@given(B=st.integers(0, 70_000), N=st.integers(0, 1 << 24),
+       hv_d=st.integers(1, 160).map(lambda w: 64 * w))
+def test_encode_slab_plan(B, N, hv_d):
+    """1 to 64 slabs a row; more than one only when each gets MIN_TILES
+    tiles or more and the launch stays within MAX_BLOCKS blocks; and the
+    scratch holds every block's sums and every word group's squares."""
+    S = ek.slab_plan(B, N, hv_d)
+    G = ek.word_groups(hv_d)
+    tiles = -(-N // ek.TILE)
+    assert G == -(-hv_d // 512) and 1 <= S <= ek.MAX_SLABS
+    assert S == 1 or (tiles >= S * ek.MIN_TILES
+                      and S * G * B <= ek.MAX_BLOCKS)
+    assert ek.scratch_words(B, S, hv_d) == B * G * (S * 512 + 1)
+
+
+@pytest.mark.parametrize("B,N,S", [(8, 6144, 6), (1, 179_712, 64),
+                                   (1, 1_453_769, 64), (64, 6144, 4),
+                                   (5, 0, 1)])
+def test_encode_slab_plan_at_the_path_shapes(B, N, S):
+    """The plan at D = 4096 for the 16-genome step's inputs, the 2^27 bp
+    one-row step's, the 2.18 Gbp genome's tiled encode, a 64-row batch
+    and rows without slots; encode_outputs plans once and sizes the
+    scratch and the outputs by that plan."""
+    assert ek.slab_plan(B, N, 4096) == S
+    plan, scratch, hv16, norm2 = ek.encode_outputs(B, N, 4096, "cpu")
+    assert plan == S and scratch.dtype == torch.int32
+    assert scratch.numel() == B * 8 * (S * 512 + 1)
+    assert hv16.shape == (B, 4096) and hv16.dtype == torch.int16
+    assert norm2.shape == (B,) and norm2.dtype == torch.int32
+
+
+@pytest.mark.parametrize("geometry", [(128, 512, 64), (256, 512, 64),
+                                      (128, 1024, 64), (128, 512, 32)])
+def test_encode_entry_checks_the_kernel_geometry(monkeypatch, geometry):
+    """The wrapper binds the kernel only when the kernel's tile, word group
+    and slab limit are the ones its plan and buffer sizes assume."""
+    from hypergen_tpu_torch.ops.kernels import build
+
+    class Lib:
+        class hg_encode_hv_i16:  # noqa: N801 - a C function's name
+            pass
+
+        @staticmethod
+        def hg_encode_geometry(out):
+            out[:] = geometry
+
+    monkeypatch.setattr(build, "load", lambda name: Lib)
+    if geometry == (ek.TILE, ek.GROUP_DIMS, ek.MAX_SLABS):
+        assert ek._entry.__wrapped__() is Lib.hg_encode_hv_i16
+    else:
+        with pytest.raises(RuntimeError, match="geometry"):
+            ek._entry.__wrapped__()
+
+
+def test_encode_ticket_buffer_grows_and_is_kept(monkeypatch):
+    """One zeroed buffer per (device, stream): reused while it holds
+    B * (G + 1) tickets, replaced by a larger zeroed one when it does not,
+    never shared between two streams."""
+    monkeypatch.setattr(ek, "_tickets", {})
+    a = ek.ticket_buffer(8, 4096, "cpu", 1)
+    assert a.dtype == torch.int32 and a.numel() >= 8 * 9 and not a.any()
+    assert ek.ticket_buffer(8, 4096, "cpu", 1) is a
+    assert ek.ticket_buffer(1, 64, "cpu", 1) is a
+    other = ek.ticket_buffer(8, 4096, "cpu", 2)
+    assert other is not a and other.data_ptr() != a.data_ptr()
+    a[0] = 5  # a stale value must not survive a growth
+    big = ek.ticket_buffer(64, 4096, "cpu", 1)
+    assert big is not a and big.numel() >= 64 * 9 and not big.any()
+    assert ek.ticket_buffer(8, 4096, "cpu", 1) is big
+    assert ek.ticket_buffer(8, 4096, "cpu", 2) is other
