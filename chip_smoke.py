@@ -41,7 +41,7 @@ drives the asynchronous sketch API: 8 batches submitted under
 torch.cuda.set_sync_debug_mode("error") and collected in reverse order,
 equal to phase 5's .sketch; a cell-cap and a compaction-width retry at
 collect, equal to the CPU; sketch_files of 128 genomes at pipeline_depth 1
-and 3, alternated, with wall, device busy time and idle share, the bytes
+and 3, alternated, with wall and the host's stages and step parts, the bytes
 identical. Phase 16 holds the encode kernel to its plain version at the
 16-genome step's inputs, the 2^27 bp one-row step's and the 2.18 Gbp
 genome's tiled encode, and at its wrap cases, times it alone on the card
@@ -1882,7 +1882,7 @@ def valid_windows(length: int, runs, k: int) -> int:
 
 @contextlib.contextmanager
 def sketch_calls(depth=None):
-    """Record (wall seconds, last_stage_times, last_device_times) of each
+    """Record (wall seconds, last_stage_times, the step's parts) of each
     Sketcher.sketch_files call made inside the block; depth: the
     pipeline_depth every call runs at (None: the caller's)."""
     from hypergen_tpu_torch.models import sketcher as sm
@@ -1895,7 +1895,7 @@ def sketch_calls(depth=None):
         t0 = time.monotonic()
         out = orig(self, *a, **kw)
         calls.append((time.monotonic() - t0, dict(self.last_stage_times),
-                      dict(self.last_device_times)))
+                      dict(self.last_part_times)))
         return out
 
     sm.Sketcher.sketch_files = timed
@@ -1910,16 +1910,15 @@ def ms_list(stages: dict) -> str:
                      for k, v in sorted(stages.items(), key=lambda kv: -kv[1]))
 
 
-def stage_text(label: str, wall: float, stages: dict, device: dict) -> str:
-    """The host spans against the sketch_files wall, then the device spans
-    (CUDA events), their sum (device busy) and the idle share 1 - busy /
-    wall."""
-    total, busy = sum(stages.values()), sum(device.values())
+def stage_text(label: str, wall: float, stages: dict, parts: dict) -> str:
+    """The host stages against the sketch_files wall, then the step's
+    parts (the host's enqueue of each, inside dispatch)."""
+    total = sum(stages.values())
     return (f"stage times{', ' + label if label else ''}: host "
             f"{ms_list(stages)}; sum "
             f"{total * 1e3:.3f} ms of the sketch_files wall {wall * 1e3:.3f} "
-            f"ms ({total / wall:.3f}); device (CUDA events) {ms_list(device)}"
-            f"; busy {busy * 1e3:.3f} ms, idle share {1 - busy / wall:.3f}")
+            f"ms ({total / wall:.3f}); step parts (host enqueue, inside "
+            f"dispatch) {ms_list(parts)}")
 
 
 def host_peak_gib() -> float:
@@ -2098,17 +2097,17 @@ def stage_table(torch, tmp: Path, genomes) -> None:
                          DEVICE])
                 sketches.append(out.read_bytes())
             os.environ.pop("HG_STAGE_TIMING")
-            wall, stages, device = calls[-1]
+            wall, stages, parts = calls[-1]
             total = sum(stages.values())
             phase(14, stage_text(f"{label}, pipeline_depth 1", wall, stages,
-                                 device))
+                                 parts))
             check(sketches[0] == sketches[1],
                   f"{label}: .sketch bytes differ with HG_STAGE_TIMING")
             check(abs(total / wall - 1) <= STAGE_SUM_TOLERANCE,
                   f"{label}: the stages sum to {total:.4f} s of a "
                   f"{wall:.4f} s wall")
             for stage in ("hash", "compact", "distinct", "encode"):
-                check(device.get(stage, 0) > 0, f"{label}: no {stage} time")
+                check(parts.get(stage, 0) > 0, f"{label}: no {stage} span")
 
     trace_dir = tmp / "trace"
     os.environ["HG_TRACE_DIR"] = str(trace_dir)
@@ -2183,7 +2182,7 @@ def pipelined(torch, tmp: Path) -> dict:
     capacity retries at collect: phase 6's scaled=50 batch (cell cap) and a
     repeat-rich genome (compaction width), equal to the CPU. (c)
     sketch_files of 128 x 4.19 Mbp at pipeline_depth 1 and 3, alternated:
-    wall, genomes/s, host stages, device busy and idle share, identical
+    wall, genomes/s, host stages and the step's parts, identical
     bytes. Returns K1's and the encode's launches in one depth-3 run of
     (c)."""
     import numpy as np
@@ -2287,29 +2286,26 @@ def pipelined(torch, tmp: Path) -> dict:
         wall = time.monotonic() - t0
         k1[depth].add(hash_packed_rows.launches)
         enc[depth].add(encode_hv_i16.launches)
-        host, device = dict(sk.last_stage_times), dict(sk.last_device_times)
+        host, parts = dict(sk.last_stage_times), dict(sk.last_part_times)
         out = tmp / "p15c.sketch"
         dump_sketch(fs, out)
         sketches.add(out.read_bytes())
-        runs[depth].append((wall, sum(device.values())))
+        runs[depth].append(wall)
         phase(15, f"(c) depth {depth}: {len(paths)} genomes in {wall:.4f} s, "
                   f"{len(paths) / wall:.3f} genomes/s, K1 launches "
                   f"{hash_packed_rows.launches}, encode launches "
                   f"{encode_hv_i16.launches}; "
-                  + stage_text("", wall, host, device))
+                  + stage_text("", wall, host, parts))
         check(abs(sum(host.values()) / wall - 1) <= STAGE_SUM_TOLERANCE,
               f"depth {depth}: the host stages sum to "
               f"{sum(host.values()):.4f} s of a {wall:.4f} s wall")
     check(len(sketches) == 1, "the .sketch bytes differ across depths or runs")
     check(len(k1[1]) == 1 and k1[1] == k1[3], f"K1 launches vary: {k1}")
     check(enc == k1, f"encode launches {enc} differ from K1's {k1}")
-    med = {dep: statistics.median(w for w, _ in r) for dep, r in runs.items()}
-    idle = {dep: [round(1 - b / w, 4) for w, b in r]
-            for dep, r in runs.items()}
+    med = {dep: statistics.median(r) for dep, r in runs.items()}
     phase(15, f"(c) {len(paths)} x {GENOME_BP} bp, median wall: depth 1 "
               f"{med[1]:.4f} s, depth 3 {med[3]:.4f} s (depth 3 / depth 1 "
-              f"{med[3] / med[1]:.3f}); idle share by run: depth 1 {idle[1]}, "
-              f"depth 3 {idle[3]}; .sketch bytes identical across "
+              f"{med[3] / med[1]:.3f}); .sketch bytes identical across "
               f"{2 * DEPTH_RUNS} runs")
     on = f"sketch_files of {len(paths)} x {GENOME_BP} bp at pipeline_depth " \
          f"3 (phase 15)"

@@ -10,8 +10,11 @@ the outputs are byte-identical to ``python -m hypergen_tpu.cli ... -D cpu``:
 the rest on the first) and fails when there is none; ``-D cpu`` runs the
 plain PyTorch versions of the kernels. ``HG_TRACE_DIR=DIR`` wraps the
 command in a ``torch.profiler`` trace written under DIR (one file for each
-process of a pod); ``HG_STAGE_TIMING=1`` logs the sketch's per-stage times
-(``Sketcher.sketch_files``).
+process of a pod), in which the port's spans are the ranges ``hg:<name>``
+(``utils.timing``); ``HG_STAGE_TIMING=1`` logs the sketch's per-stage times
+(``Sketcher.sketch_files``): the host stages, which add up to the wall,
+then the host's enqueue of each part of the sketch step, from the span
+totals over the call.
 
 A pod (several processes, ``parallel.mesh``: the ``HG_*`` variables or
 ``torchrun`` with ``HG_DIST=1``) runs the JAX CLI's pod paths, each process

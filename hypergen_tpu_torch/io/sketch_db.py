@@ -27,6 +27,7 @@ from typing import List, Optional
 import numpy as np
 
 from hypergen_tpu_torch.io.bitpack import compress_hv, unpack_hv
+from hypergen_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass
@@ -219,54 +220,64 @@ class ShardedDB:
 
 
 def dump_sharded_db(db: ShardedDB, out_dir, n_shards: int = 1) -> None:
-    """Write an .hgdb directory: manifest.json + per-shard .npy files."""
+    """Write an .hgdb directory: manifest.json + per-shard .npy files (the
+    span ``db_save``)."""
     out = Path(out_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    n = len(db.names)
-    bounds = [round(i * n / n_shards) for i in range(n_shards + 1)]
-    shards = []
-    for i in range(n_shards):
-        a, b = bounds[i], bounds[i + 1]
-        np.save(out / f"shard_{i:05d}_hv.npy", db.hvs[a:b])
-        np.save(out / f"shard_{i:05d}_norm.npy", db.norms[a:b])
-        shards.append(
-            {
-                "id": i,
-                "rows": [a, b],
-                "hv": f"shard_{i:05d}_hv.npy",
-                "norm": f"shard_{i:05d}_norm.npy",
-            }
-        )
-    manifest = {
-        "format": "hgdb-v1",
-        "ksize": db.ksize,
-        "scaled": db.scaled,
-        "canonical": db.canonical,
-        "seed": db.seed,
-        "hv_d": db.hv_d,
-        "sketch_method": db.sketch_method,
-        "n_genomes": n,
-        "names": db.names,
-        "resolved_names": _resolve_names(db.names),
-        "shards": shards,
-    }
-    (out / "manifest.json").write_text(json.dumps(manifest, indent=1))
+    with span("db_save"):
+        out.mkdir(parents=True, exist_ok=True)
+        n = len(db.names)
+        bounds = [round(i * n / n_shards) for i in range(n_shards + 1)]
+        shards = []
+        for i in range(n_shards):
+            a, b = bounds[i], bounds[i + 1]
+            np.save(out / f"shard_{i:05d}_hv.npy", db.hvs[a:b])
+            np.save(out / f"shard_{i:05d}_norm.npy", db.norms[a:b])
+            shards.append(
+                {
+                    "id": i,
+                    "rows": [a, b],
+                    "hv": f"shard_{i:05d}_hv.npy",
+                    "norm": f"shard_{i:05d}_norm.npy",
+                }
+            )
+        manifest = {
+            "format": "hgdb-v1",
+            "ksize": db.ksize,
+            "scaled": db.scaled,
+            "canonical": db.canonical,
+            "seed": db.seed,
+            "hv_d": db.hv_d,
+            "sketch_method": db.sketch_method,
+            "n_genomes": n,
+            "names": db.names,
+            "resolved_names": _resolve_names(db.names),
+            "shards": shards,
+        }
+        (out / "manifest.json").write_text(json.dumps(manifest, indent=1))
 
 
 def load_sharded_db(path, shard_ids: Optional[List[int]] = None) -> ShardedDB:
-    """Load all (or selected) shards of an .hgdb directory."""
+    """Load all (or selected) shards of an .hgdb directory, in the spans
+    ``db_load_manifest`` (manifest.json and the names), ``db_load_read``
+    (the shards' files) and ``db_load_assemble`` (their concatenation)."""
     root = Path(path)
-    manifest = json.loads((root / "manifest.json").read_text())
-    # names are derived from each shard's row range, so any order is
-    # internally consistent — but global row order keeps DB row indices
-    # stable across loaders (load_db_rows/load_db_norms sort the same way)
-    shards = sorted(manifest["shards"], key=lambda sh: sh["rows"][0])
-    if shard_ids is not None:
-        shards = [s for s in shards if s["id"] in set(shard_ids)]
-    hvs = [np.load(root / s["hv"]) for s in shards]
-    norms = [np.load(root / s["norm"]) for s in shards]
-    rows = [r for s in shards for r in range(s["rows"][0], s["rows"][1])]
-    names = [manifest["names"][r] for r in rows]
+    with span("db_load_manifest"):
+        manifest = json.loads((root / "manifest.json").read_text())
+        # names are derived from each shard's row range, so any order is
+        # internally consistent — but global row order keeps DB row indices
+        # stable across loaders (load_db_rows/load_db_norms sort the same way)
+        shards = sorted(manifest["shards"], key=lambda sh: sh["rows"][0])
+        if shard_ids is not None:
+            shards = [s for s in shards if s["id"] in set(shard_ids)]
+        rows = [r for s in shards for r in range(s["rows"][0], s["rows"][1])]
+        names = [manifest["names"][r] for r in rows]
+    with span("db_load_read"):
+        hvs = [np.load(root / s["hv"]) for s in shards]
+        norms = [np.load(root / s["norm"]) for s in shards]
+    with span("db_load_assemble"):
+        hvs = (np.concatenate(hvs) if hvs
+               else np.zeros((0, manifest["hv_d"]), np.int16))
+        norms = np.concatenate(norms) if norms else np.zeros((0,), np.int32)
     return ShardedDB(
         ksize=manifest["ksize"],
         scaled=manifest["scaled"],
@@ -274,18 +285,20 @@ def load_sharded_db(path, shard_ids: Optional[List[int]] = None) -> ShardedDB:
         seed=manifest["seed"],
         hv_d=manifest["hv_d"],
         names=names,
-        hvs=np.concatenate(hvs) if hvs else np.zeros((0, manifest["hv_d"]), np.int16),
-        norms=np.concatenate(norms) if norms else np.zeros((0,), np.int32),
+        hvs=hvs,
+        norms=norms,
         sketch_method=manifest.get("sketch_method", "t1ha2"),
     )
 
 
 def sketches_to_db(sketches: List[FileSketch]) -> ShardedDB:
-    """Decompress a .sketch list into the dense DB layout."""
+    """Decompress a .sketch list into the dense DB layout (the span
+    ``db_decompress``)."""
     if not sketches:
         raise ValueError("empty sketch list")
     s0 = sketches[0]
-    hvs = np.stack([s.decompress() for s in sketches])
+    with span("db_decompress"):
+        hvs = np.stack([s.decompress() for s in sketches])
     return ShardedDB(
         ksize=s0.ksize,
         scaled=s0.scaled,

@@ -47,7 +47,6 @@ once (``sketch_packed_tiled``). These routes run synchronously.
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
 import logging
 import os
@@ -71,9 +70,13 @@ from hypergen_tpu_torch.ops.kernels.hash_kernel import (
     MAX_POSITIONS,
     hash_packed_rows,
 )
-from hypergen_tpu_torch.utils.timing import SketchTimer
+from hypergen_tpu_torch.utils.timing import SketchTimer, span
 
 log = logging.getLogger("hypergen")
+
+# the step's parts, in the order _enqueue enqueues them: each is a span of
+# the host's enqueue, inside dispatch
+STEP_PARTS = ("upload", "hash", "compact", "distinct", "encode", "download")
 
 # start of a padding run row: no window end reaches it, since every row of
 # a batch (a genome or a tile) has fewer than 2^31 codes
@@ -222,14 +225,14 @@ class Sketcher:
         self.retries: Dict[str, int] = collections.Counter()
         self._timer: Optional[SketchTimer] = None  # set inside sketch_files
         self.last_stage_times: Dict[str, float] = {}
-        self.last_device_times: Dict[str, float] = {}
+        self.last_part_times: Dict[str, float] = {}
 
-    def _stage(self, name: str, device: bool = False):
-        """A span of the stage timer (device=True: timed on the device's
-        stream); nothing while no timer is set (outside sketch_files)."""
+    def _stage(self, name: str, cpu: bool = False):
+        """A stage of the sketch path: a stage of the call's timer inside
+        sketch_files, else a bare span (both are utils.timing.span)."""
         if self._timer is None:
-            return contextlib.nullcontext()
-        return self._timer.stage(name, device)
+            return span(name, cpu)
+        return self._timer.stage(name, cpu)
 
     def _bucket(self, L: int) -> int:
         """Chunks per row for a genome of L codes: a power of two."""
@@ -294,32 +297,33 @@ class Sketcher:
         reads the device. Outputs per row: the HV (int16 [B, D]) and meta
         int64 [B, 4] = (norm2, n_hashes, cell_max, survivors); with
         hashes=True the sorted hashes int64 [B, width] and their
-        first-occurrence mask in place of the HV (norm2 0)."""
+        first-occurrence mask in place of the HV (norm2 0). Each part is
+        a span of the host's enqueue."""
         p = self.params
         B, W = host.words.shape
         R = host.runs.shape[1]
-        with self._stage("upload", device=True):
+        with span("upload"):
             buf = host.buf.to(self.device, non_blocking=True)
             words = buf[: B * W].view(B, W)
             runs = buf[B * W : B * (W + 2 * R)].view(B, R, 2)
             n_pos = buf[B * (W + 2 * R) :]
-        with self._stage("hash", device=True):
+        with span("hash"):
             h, pos, valid, cell_max = hash_packed_rows(
                 words, n_pos, n_chunks, self.C, p.ksize, p.seed, p.threshold,
                 canonical=p.canonical, method=p.sketch_method,
                 cells=self.cells, cap=cap,
             )
-        with self._stage("compact", device=True):
+        with span("compact"):
             (h, pos), count = compact_to_width(valid, width, h, pos)
             filled = torch.arange(width, device=h.device) < count[:, None]
             clean = filled & filter_positions_by_runs(pos, runs, p.ksize)
-        with self._stage("distinct", device=True):
+        with span("distinct"):
             hs, first = distinct_hashes(h, clean)
         n_hashes = first.sum(dim=-1)
         if hashes:
             norm2, outs = torch.zeros_like(n_hashes), (hs, first)
         else:
-            with self._stage("encode", device=True):
+            with span("encode"):
                 hv16, norm2 = encode_hv_i16(hs, first, p.hv_d)
                 outs = (hv16,)
         meta = torch.stack(
@@ -327,7 +331,7 @@ class Sketcher:
              count], dim=-1)
         device_out = (*outs, meta)
         event = None
-        with self._stage("download", device=True):
+        with span("download"):
             if self.device.type == "cuda":
                 out = tuple(
                     torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -341,9 +345,11 @@ class Sketcher:
 
     def _submit(self, genomes: List[PackedGenome], n_chunks: int,
                 hashes: bool = False) -> SketchHandle:
-        with self._stage("pack"):
+        # the thread's CPU time of pack and dispatch: off-CPU waits for the
+        # interpreter lock or a core (sketch.host_offcpu_share)
+        with self._stage("pack", cpu=True):
             host = self._prepare_batch(genomes, n_chunks)
-        with self._stage("dispatch"):
+        with self._stage("dispatch", cpu=True):
             return self._enqueue(host, n_chunks, self.cell_cap,
                                  self._enc_cap(n_chunks), hashes)
 
@@ -485,7 +491,7 @@ class Sketcher:
                 tiles[lo : lo + self.batch], tile_chunks, hashes=True)))
         merged = np.unique(np.concatenate(parts).view(np.uint64)).view(np.int64)
         h = torch.from_numpy(merged).to(self.device)[None]
-        with self._stage("encode", device=True):
+        with span("encode"):
             hv16, norm2 = encode_hv_i16(
                 h, torch.ones_like(h, dtype=torch.bool), self.params.hv_d)
         return {"hv": hv16[0].cpu().numpy(), "norm2": int(norm2[0]),
@@ -528,10 +534,10 @@ class Sketcher:
         route on the H100); above that it is split over seqpar_devices when
         they are several cards, else tiled on this device. On the CPU it is
         tiled, as the JAX package routes it. In sketch_files the route is
-        the span ``huge:<route>``, charged with what its steps' own spans
+        the stage ``huge_<route>``, charged with what its steps' own stages
         do not cover."""
         route, cards = self._huge_route(g)
-        with self._stage(f"huge:{route}"):
+        with self._stage(f"huge_{route}"):
             if route == "one_row":
                 return self.sketch_batch([g])[0]
             if route == "seqpar":
@@ -597,14 +603,15 @@ class Sketcher:
         (its route sizes itself by the device's free memory) and runs
         synchronously. progress=False turns the progress bar off.
 
-        Each call times its stages (utils.timing.SketchTimer): the host
-        spans' totals in seconds, which add up to the call's wall time,
-        land in ``last_stage_times``, and on a CUDA device the device
-        spans' (CUDA events on its stream, read after the last collect) in
-        ``last_device_times``; with HG_STAGE_TIMING set the table is
-        logged at INFO. ``io_pool`` is the I/O pool's own time (submitting
-        parses, which starts its threads, and its shutdown), ``fasta_read``
-        the wait on a parse, ``collect`` the wait on the device.
+        Each call times its stages (utils.timing.SketchTimer): their
+        totals in seconds, which add up to the call's wall time, land in
+        ``last_stage_times``, and the step's parts' span totals over the
+        call (``STEP_PARTS``: the host's enqueue of each, inside
+        ``dispatch``) in ``last_part_times``; with HG_STAGE_TIMING set the
+        table, and after it the parts, is logged at INFO. ``io_pool`` is the I/O pool's
+        own time (submitting parses, which starts its threads, and its
+        shutdown), ``fasta_read`` the wait on a parse, ``collect`` the wait
+        on the device.
         """
         from hypergen_tpu_torch.utils.progress import ProgressBar
 
@@ -613,7 +620,7 @@ class Sketcher:
         io_threads = io_threads or max(min(self.params.threads, 16), 1)
         read_ahead = read_ahead or max(8 * self.batch, 2 * io_threads)
         results: Dict[int, FileSketch] = {}
-        timer = self._timer = SketchTimer(self.device)
+        timer = self._timer = SketchTimer(STEP_PARTS)
         window = collections.deque()  # (input indices, handle), oldest first
 
         def finish(i: int, res: Dict[str, object]) -> None:
@@ -676,7 +683,7 @@ class Sketcher:
         pb.finish()
         timer.resolve()
         self.last_stage_times = dict(timer.totals)
-        self.last_device_times = dict(timer.device_totals)
+        self.last_part_times = dict(timer.part_totals)
         if os.environ.get("HG_STAGE_TIMING"):
             log.info("sketch stage timing:\n%s", timer.report())
         return [results[i] for i in range(len(paths))]

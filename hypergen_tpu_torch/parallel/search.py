@@ -18,6 +18,14 @@ as the JAX package ranks them and then masked, so the winners, the -inf
 slots included, are the JAX package's. In a pod (``parallel.mesh``),
 ``multihost_topk_search`` runs that per process over its own rows and
 gathers the processes' candidates with ``torch.distributed.all_gather``.
+
+Every route times its parts in the spans (``utils.timing.span``)
+``search_mode_scan`` (``resolve_mode``'s host scan of the DB and the
+queries), ``search_upload`` (the rows' and queries' copies to the
+devices), ``search_dot_topk`` (the dots, top-k, pads and merges),
+``search_fetch`` (the copy back, which waits for the devices) and, in
+``run_search_cli``, ``search_host_chain`` (the host float chain and the
+TSV).
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 
 from hypergen_tpu_torch.ops.ani import ani_topk, resolve_mode, topk_desc
+from hypergen_tpu_torch.utils.timing import span
 
 log = logging.getLogger("hypergen")
 
@@ -62,8 +71,21 @@ def _padded_rows(hv: np.ndarray, lo: int, rows: int,
 
 def _on_devices(devices, *arrays):
     """{device: tuple of tensors} with each array uploaded once a device."""
-    return {d: tuple(torch.from_numpy(np.ascontiguousarray(a)).to(d)
-                     for a in arrays) for d in set(devices)}
+    with span("search_upload"):
+        return {d: tuple(torch.from_numpy(np.ascontiguousarray(a)).to(d)
+                         for a in arrays) for d in set(devices)}
+
+
+def _mode(mode, device, db_hv, q_hv):
+    """resolve_mode in the span search_mode_scan."""
+    with span("search_mode_scan"):
+        return resolve_mode(mode, device, db_hv, q_hv)
+
+
+def _fetch(*tensors) -> Tuple[np.ndarray, ...]:
+    """The tensors as numpy arrays, in the span search_fetch."""
+    with span("search_fetch"):
+        return tuple(t.cpu().numpy() for t in tensors)
 
 
 def _block_candidates(devices, db_hv, db_norm, lo: int, rows: int, q_on,
@@ -77,19 +99,22 @@ def _block_candidates(devices, db_hv, db_norm, lo: int, rows: int, q_on,
     vs, ids, ds = [], [], []
     for di, dev in enumerate(devices):
         q, qn = q_on[dev]
-        hv = _padded_rows(db_hv, lo + di * rp, rp, dev)
-        norm = _padded_rows(db_norm, lo + di * rp, rp, dev)
-        v, i, d = ani_topk(hv, norm, q, qn, ksize, min(k_top, rp), mode)
-        del hv
-        pad = k_top - v.shape[1]
-        if pad:  # shard smaller than k: -inf slots, local index 0
-            v = torch.nn.functional.pad(v, (0, pad), value=float("-inf"))
-            i = torch.nn.functional.pad(i, (0, pad))
-            d = torch.nn.functional.pad(d, (0, pad))
-        vs.append(v.to(home))
-        ids.append((i + di * rp).to(home))
-        ds.append(d.to(home))
-    return _merge(vs, ids, ds, k_top)
+        with span("search_upload"):
+            hv = _padded_rows(db_hv, lo + di * rp, rp, dev)
+            norm = _padded_rows(db_norm, lo + di * rp, rp, dev)
+        with span("search_dot_topk"):
+            v, i, d = ani_topk(hv, norm, q, qn, ksize, min(k_top, rp), mode)
+            del hv
+            pad = k_top - v.shape[1]
+            if pad:  # shard smaller than k: -inf slots, local index 0
+                v = torch.nn.functional.pad(v, (0, pad), value=float("-inf"))
+                i = torch.nn.functional.pad(i, (0, pad))
+                d = torch.nn.functional.pad(d, (0, pad))
+            vs.append(v.to(home))
+            ids.append((i + di * rp).to(home))
+            ds.append(d.to(home))
+    with span("search_dot_topk"):
+        return _merge(vs, ids, ds, k_top)
 
 
 def _merge(vs, ids, ds, k_top: int):
@@ -103,7 +128,7 @@ def _merge(vs, ids, ds, k_top: int):
 
 def _block_topk(*args):
     """_block_candidates as numpy arrays."""
-    return tuple(t.cpu().numpy() for t in _block_candidates(*args))
+    return _fetch(*_block_candidates(*args))
 
 
 def _mask_padding(ani, idx, dot, M: int, Mp: int):
@@ -128,7 +153,7 @@ def sharded_topk_search(
     which the TSV feeds through the host float chain).
     """
     devs = [torch.device(d) for d in devices]
-    mode = resolve_mode(mode, devs[0], db_hv, q_hv)
+    mode = _mode(mode, devs[0], db_hv, q_hv)
     M, ndb = db_hv.shape[0], len(devs)
     Mp = -(-M // ndb) * ndb
     q_on = _on_devices(devs, q_hv, q_norm)
@@ -149,7 +174,7 @@ def local_topk_search_tiled(
     tile's, so peak memory is O(tile_m x N) instead of O(M x N).
     """
     device = torch.device(device)
-    mode = resolve_mode(mode, device, db_hv, q_hv)
+    mode = _mode(mode, device, db_hv, q_hv)
     tile_m = max(tile_m, k_top)  # each tile must give k_top candidates
     M, N = db_hv.shape[0], q_hv.shape[0]
     (q, qn), = _on_devices([device], q_hv, q_norm).values()
@@ -157,15 +182,16 @@ def local_topk_search_tiled(
     run_i = torch.zeros((N, k_top), dtype=torch.int32, device=device)
     run_d = torch.zeros((N, k_top), dtype=torch.int32, device=device)
     for mi in range(0, M, tile_m):
-        v, i, d = ani_topk(
-            _padded_rows(db_hv, mi, tile_m, device),
-            _padded_rows(db_norm, mi, tile_m, device),
-            q, qn, ksize, k_top, mode,
-        )
-        run_v, mp = topk_desc(torch.cat([run_v, v], dim=1), k_top)
-        run_i = torch.gather(torch.cat([run_i, i + mi], dim=1), 1, mp)
-        run_d = torch.gather(torch.cat([run_d, d], dim=1), 1, mp)
-    return _mask_padding(*(t.cpu().numpy() for t in (run_v, run_i, run_d)),
+        with span("search_upload"):
+            hv = _padded_rows(db_hv, mi, tile_m, device)
+            norm = _padded_rows(db_norm, mi, tile_m, device)
+        with span("search_dot_topk"):
+            v, i, d = ani_topk(hv, norm, q, qn, ksize, k_top, mode)
+            del hv
+            run_v, mp = topk_desc(torch.cat([run_v, v], dim=1), k_top)
+            run_i = torch.gather(torch.cat([run_i, i + mi], dim=1), 1, mp)
+            run_d = torch.gather(torch.cat([run_d, d], dim=1), 1, mp)
+    return _mask_padding(*_fetch(run_v, run_i, run_d),
                          M, -(-M // tile_m) * tile_m)
 
 
@@ -184,7 +210,7 @@ def sharded_topk_search_tiled(
     whole DB.
     """
     devs = [torch.device(d) for d in devices]
-    mode = resolve_mode(mode, devs[0], db_hv, q_hv)
+    mode = _mode(mode, devs[0], db_hv, q_hv)
     ndb = len(devs)
     M, N = db_hv.shape[0], q_hv.shape[0]
     tile_m = -(-max(tile_m, k_top) // ndb) * ndb
@@ -198,13 +224,14 @@ def sharded_topk_search_tiled(
                          k_top, mode),
             min(tile_m, M - mi), tile_m,
         )
-        cv = np.concatenate([run_v, v], axis=1)
-        ci = np.concatenate([run_i, i + mi], axis=1)
-        cd = np.concatenate([run_d, d], axis=1)
-        pos = np.argsort(-cv, axis=1, kind="stable")[:, :k_top]
-        run_v = np.take_along_axis(cv, pos, axis=1)
-        run_i = np.take_along_axis(ci, pos, axis=1).astype(np.int32)
-        run_d = np.take_along_axis(cd, pos, axis=1).astype(np.int32)
+        with span("search_dot_topk"):
+            cv = np.concatenate([run_v, v], axis=1)
+            ci = np.concatenate([run_i, i + mi], axis=1)
+            cd = np.concatenate([run_d, d], axis=1)
+            pos = np.argsort(-cv, axis=1, kind="stable")[:, :k_top]
+            run_v = np.take_along_axis(cv, pos, axis=1)
+            run_i = np.take_along_axis(ci, pos, axis=1).astype(np.int32)
+            run_d = np.take_along_axis(cd, pos, axis=1).astype(np.int32)
     return run_v, run_i, run_d
 
 
@@ -280,19 +307,19 @@ def multihost_topk_search(
         hv, norm = part.hvs, part.norms
     log.info("pod search: process %d/%d holds DB rows [%d, %d) of %d",
              rank, nproc, lo, hi, M)
-    mode = resolve_mode(mode, devs[0], hv, q_hv)
+    mode = _mode(mode, devs[0], hv, q_hv)
     q_on = _on_devices(devs, q_hv, q_norm)
     v, i, d = _block_candidates(devs, hv, norm, 0, block, q_on, ksize, k_top,
                                 mode)
     i = i + rank * block
     if nproc > 1:
-        v, i, d = _merge(*(mesh.all_gather(t) for t in (v, i, d)), k_top)
+        with span("search_dot_topk"):
+            v, i, d = _merge(*(mesh.all_gather(t) for t in (v, i, d)), k_top)
     if devs[0].type == "cuda":
         log.info("pod search: process %d/%d peak allocated %d B on %s",
                  rank, nproc, torch.cuda.max_memory_allocated(devs[0]),
                  devs[0])
-    return _mask_padding(*(t.cpu().numpy() for t in (v, i, d)), M,
-                         nproc * block)
+    return _mask_padding(*_fetch(v, i, d), M, nproc * block)
 
 
 def _exact_ani(ref_norms, query_db, ani: np.ndarray, idx: np.ndarray,
@@ -364,12 +391,13 @@ def run_search_cli(args, load_db, devices: Sequence) -> None:
         ani, idx, dot = topk_search(devices, ref.hvs, ref.norms,
                                     query_db.hvs, query_db.norms, ref.ksize,
                                     k_top)
-    if mesh.process_index() == 0:
-        n_hits = write_search_tsv(args.out, ref_names, ref_norms, query_db,
-                                  ani, idx, dot, args.ani_th)
-    else:  # the results are the same on every process
-        n_hits = count_search_hits(
-            _exact_ani(ref_norms, query_db, ani, idx, dot), args.ani_th)
+    with span("search_host_chain"):
+        if mesh.process_index() == 0:
+            n_hits = write_search_tsv(args.out, ref_names, ref_norms,
+                                      query_db, ani, idx, dot, args.ani_th)
+        else:  # the results are the same on every process
+            n_hits = count_search_hits(
+                _exact_ani(ref_norms, query_db, ani, idx, dot), args.ani_th)
     log.info(
         "Searched %d queries against %d refs (top-%d) in %.3fs -> %d hits%s",
         N, M, k_top, time.monotonic() - t0, n_hits,

@@ -1,16 +1,35 @@
-"""Per-stage wall-time instrumentation and optional profiler traces.
+"""Spans, per-stage wall-time instrumentation and optional profiler traces.
 
-Counterpart of ``hypergen_tpu.utils.timing``. ``StageTimer`` is the JAX
-package's class: named host-clock spans and the same report. The sketch
-path (``Sketcher``) uses ``SketchTimer``, a StageTimer whose spans may nest
-and may be timed on a CUDA stream. Its host spans tile the calling
-thread's time, so they add up to the wall: ``io_pool``, ``fasta_read``,
-``pack``, ``dispatch`` (enqueueing a step), ``collect`` (the wait for a
-step's outputs and its capacity check) and ``compress``, named after the
-JAX package's spans where they match, and ``huge:<route>``. Its device
-spans (``upload``, ``hash``, ``compact``, ``distinct``, ``encode``,
-``download``) are the stream's busy time, kept apart: with batches in
-flight they overlap the host spans.
+Counterpart of ``hypergen_tpu.utils.timing``. ``span(name)`` is the port's
+one span primitive: it adds its wall nanoseconds and a count to the
+process's totals (``SPANS.<name>.ns``, ``.n``; with ``cpu=True`` also the
+calling thread's CPU nanoseconds, ``.cpu_ns``), and while a
+``torch.profiler`` records it is also the range ``hg:<name>`` of the trace,
+on the profiler's clock and nested in whatever range is open. With no
+profiler recording it enters no profiler range. The thread's CPU clock is a
+system call (2.3-3.4 us a reading on the H100 machine's host, more than a
+whole span without it, 1.8-1.9 us), so only the spans whose CPU time is read
+take it: ``pack`` and ``dispatch``. The port opens spans on its calling
+thread only (the parser threads open none):
+
+- the sketch path (``models/sketcher.py``): ``io_pool``, ``fasta_read``,
+  ``pack``, ``dispatch``, ``collect``, ``compress``, ``huge_<route>``, and
+  inside ``dispatch`` the host's enqueue of each part of the step
+  (``sketcher.STEP_PARTS``);
+- the ``.hgdb`` write and load (``io/sketch_db.py``): ``db_decompress``,
+  ``db_save``, ``db_load_manifest``, ``db_load_read``,
+  ``db_load_assemble``;
+- the search call (``parallel/search.py``): ``search_mode_scan``,
+  ``search_upload``, ``search_dot_topk``, ``search_fetch``,
+  ``search_host_chain``.
+
+``StageTimer`` is the JAX package's class: named host-clock spans and the
+same report. ``Sketcher.sketch_files`` uses ``SketchTimer``, a StageTimer
+whose stages are spans and may nest. Its stages tile the calling thread's
+time, so they add up to the wall (``Sketcher.last_stage_times``); the
+step's parts stay out of that tiling (``dispatch`` includes them): their
+span totals over the call are ``Sketcher.last_part_times``, and the
+report (``HG_STAGE_TIMING`` in the CLI) lists them after the stages.
 
 ``maybe_profile`` captures a ``torch.profiler`` trace (``HG_TRACE_DIR`` in
 the CLI) where the JAX package captures a ``jax.profiler`` one.
@@ -19,11 +38,11 @@ the CLI) where the JAX package captures a ``jax.profiler`` one.
 from __future__ import annotations
 
 import contextlib
+import sys
 import time
 from collections import defaultdict
 from pathlib import Path
-from typing import Dict, List
-
+from typing import Dict, List, Sequence, Tuple
 
 class StageTimer:
     def __init__(self):
@@ -51,94 +70,143 @@ def _report(totals: Dict[str, float], counts: Dict[str, int]) -> str:
     return "\n".join(lines)
 
 
-class _Span:
-    __slots__ = ("name", "seconds", "events", "children")
+class SpanTotal:
+    """One span name's totals since the process started: wall nanoseconds
+    (``time.perf_counter_ns``), the calling thread's CPU nanoseconds
+    (``time.thread_time_ns``, spans opened with cpu=True) and the spans
+    closed."""
 
-    def __init__(self, name: str):
-        self.name = name
-        self.seconds = 0.0
-        self.events = None  # (start, end) CUDA events of a device span
-        self.children: List["_Span"] = []
+    __slots__ = ("ns", "cpu_ns", "n")
 
-    def elapsed(self) -> float:
-        """A device span's time: waits for its end event."""
-        start, end = self.events
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
+    def __init__(self):
+        self.ns = self.cpu_ns = self.n = 0
+
+
+class SpanTotals:
+    """The process's span totals by name, read as attributes
+    (``SPANS.pack.ns``) or items; a name never opened reads zeros."""
+
+    def __init__(self):
+        self._by_name: Dict[str, SpanTotal] = {}
+
+    def __getattr__(self, name: str) -> SpanTotal:
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return self[name]
+
+    def __getitem__(self, name: str) -> SpanTotal:
+        return self._by_name.get(name) or SpanTotal()
+
+    def _add(self, name: str, ns: int, cpu_ns: int) -> None:
+        t = self._by_name.get(name)
+        if t is None:
+            t = self._by_name[name] = SpanTotal()
+        t.ns += ns
+        t.cpu_ns += cpu_ns
+        t.n += 1
+
+    def snapshot(self, names: Sequence[str]) -> Dict[str, Tuple[int, int]]:
+        """{name: (ns, n)} now, for a difference over an interval."""
+        return {k: (self[k].ns, self[k].n) for k in names}
+
+
+SPANS = SpanTotals()
+
+
+class span:
+    """``with span(name[, cpu=True]):`` a span of the port (module
+    docstring); cpu=True also reads the thread's CPU clock. The clocks are
+    read outside the profiler range, so that the span covers its range's
+    own cost. ``ns`` holds the span's wall nanoseconds once it has closed."""
+
+    __slots__ = ("name", "cpu", "ns", "_w0", "_c0", "_range")
+
+    def __init__(self, name: str, cpu: bool = False):
+        self.name, self.cpu = name, cpu
+        self.ns = self._c0 = 0
+        self._range = None
+
+    def __enter__(self) -> "span":
+        self._w0 = time.perf_counter_ns()
+        if self.cpu:
+            self._c0 = time.thread_time_ns()
+        # no profiler can record before torch is imported. The range is
+        # torch's fast record-function, entered without an operator call:
+        # record_function's operator call, beside the parser threads, made
+        # the sketch path's stages several times longer while traced
+        torch = sys.modules.get("torch")
+        if torch is not None and torch.autograd._profiler_enabled():
+            self._range = torch._C._profiler._RecordFunctionFast(
+                "hg:" + self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        cpu_ns = time.thread_time_ns() - self._c0 if self.cpu else 0
+        self.ns = time.perf_counter_ns() - self._w0
+        SPANS._add(self.name, self.ns, cpu_ns)
+
+
+class _Stage:
+    """One stage of a SketchTimer: a span whose own time (less the stages
+    opened inside it) goes to the timer's totals when it closes."""
+
+    __slots__ = ("timer", "span", "child_ns")
+
+    def __init__(self, timer: "SketchTimer", sp: span):
+        self.timer, self.span, self.child_ns = timer, sp, 0
+
+    def __enter__(self) -> "_Stage":
+        self.timer._open.append(self)
+        self.span.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        sp, t = self.span, self.timer
+        sp.__exit__(*exc)
+        t._open.pop()
+        if t._open:
+            t._open[-1].child_ns += sp.ns
+        t.totals[sp.name] += (sp.ns - self.child_ns) / 1e9
+        t.counts[sp.name] += 1
 
 
 class SketchTimer(StageTimer):
-    """A StageTimer for the sketch path.
+    """A StageTimer for the sketch path whose stages are spans (``span``).
 
-    ``stage(name, device=True)`` on a CUDA device is timed by a pair of
-    CUDA events recorded on the device's current stream: recording adds no
-    wait on the host. Such a span goes to ``device_totals`` and
-    ``device_counts``, whose sum is the stream's busy time, and stays out
-    of the host spans around it. Every other span (all of them without a
-    CUDA stream) is timed by the host clock into ``totals``; a span opened
-    inside another is charged to itself only, so that the totals add up to
-    the wall time they cover. Spans are folded in by ``resolve()``, which
-    reads the events: call it once the path has waited for the device.
+    A stage opened inside another is charged to itself only, so that the
+    totals add up to the wall time they cover. The spans named in `parts`
+    run inside the stages and stay out of their tiling: ``resolve()`` puts
+    their span totals over the timer's life in ``part_totals`` and
+    ``part_counts``, and ``report()`` lists them after the stages.
     """
 
-    def __init__(self, device=None):
-        """device: the torch.device the path runs on (None: host only)."""
+    def __init__(self, parts: Sequence[str] = ()):
         super().__init__()
-        self._stream = None
-        if device is not None and device.type == "cuda":
-            import torch
+        self._open: List[_Stage] = []
+        self._parts0 = SPANS.snapshot(parts)
+        self.part_totals: Dict[str, float] = {}
+        self.part_counts: Dict[str, int] = {}
 
-            self._stream = torch.cuda.current_stream(device)
-        self._spans: List[_Span] = []
-        self._open: List[_Span] = []
-        self._device_spans: List[_Span] = []
-        self.device_totals: Dict[str, float] = defaultdict(float)
-        self.device_counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str, device: bool = False):
-        span = _Span(name)
-        if device and self._stream is not None:
-            import torch
-
-            span.events = (torch.cuda.Event(enable_timing=True),
-                           torch.cuda.Event(enable_timing=True))
-            self._device_spans.append(span)
-            span.events[0].record(self._stream)
-            try:
-                yield
-            finally:
-                span.events[1].record(self._stream)
-            return
-        if self._open:
-            self._open[-1].children.append(span)
-        self._spans.append(span)
-        self._open.append(span)
-        t0 = time.monotonic()
-        try:
-            yield
-        finally:
-            self._open.pop()
-            span.seconds = time.monotonic() - t0
+    def stage(self, name: str, cpu: bool = False) -> _Stage:
+        return _Stage(self, span(name, cpu))
 
     def resolve(self) -> None:
-        for span in self._spans:
-            own = span.seconds - sum(c.seconds for c in span.children)
-            self.totals[span.name] += own
-            self.counts[span.name] += 1
-        for span in self._device_spans:
-            self.device_totals[span.name] += span.elapsed()
-            self.device_counts[span.name] += 1
-        self._spans, self._device_spans = [], []
+        for name, (ns, n) in self._parts0.items():
+            t = SPANS[name]
+            if t.n > n:
+                self.part_totals[name] = (t.ns - ns) / 1e9
+                self.part_counts[name] = t.n - n
 
     def report(self) -> str:
-        """The host spans, then (on a CUDA device) the device spans under a
-        line with their sum, the stream's busy time."""
+        """The stages, then the parts under a line of their own."""
         text = super().report()
-        if self.device_totals:
-            busy = sum(self.device_totals.values())
-            text += (f"\ndevice spans (CUDA events; busy {busy:.3f}s):\n"
-                     + _report(self.device_totals, self.device_counts))
+        if self.part_totals:
+            text += ("\nstep parts (the host's enqueue, inside dispatch):\n"
+                     + _report(self.part_totals, self.part_counts))
         return text
 
 
@@ -147,7 +215,7 @@ def maybe_profile(trace_dir: str = "", cuda: bool = False):
     """Capture a torch.profiler trace when trace_dir is set: CPU activity,
     and CUDA activity with cuda=True. The Chrome trace goes to
     trace_dir/hypergen_<time>_p<process index>.json, one file for each
-    process of a pod."""
+    process of a pod; the port's spans are its ``hg:<name>`` ranges."""
     if not trace_dir:
         yield
         return
@@ -164,4 +232,3 @@ def maybe_profile(trace_dir: str = "", cuda: bool = False):
     out = Path(trace_dir) / f"hypergen_{stamp}_p{process_index()}.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out))
-

@@ -15,8 +15,16 @@ import torch
 
 from hypergen_tpu_torch.io.fastx import INVALID, packed_from_codes
 from hypergen_tpu_torch.params import SketchParams, fracminhash_threshold
-from hypergen_tpu_torch.models.sketcher import Sketcher, packed_row_words
+from hypergen_tpu_torch.models.sketcher import (
+    STEP_PARTS,
+    Sketcher,
+    packed_row_words,
+)
 from hypergen_tpu_torch.ops.kernels import hash_kernel as hk
+
+# last_stage_times' keys on a folder of batch genomes
+HOST_STAGES = {"io_pool", "fasta_read", "pack", "dispatch", "collect",
+               "compress"}
 
 
 @pytest.fixture
@@ -410,9 +418,10 @@ def _write_genomes(d, lengths, seed):
 
 @pytest.mark.cuda
 def test_cuda_stage_timing_logs_device_stages(cuda, tmp_path, monkeypatch):
-    """HG_STAGE_TIMING on the card: the table names the device stages, each
-    timed above 0 by CUDA events (read from last_device_times: the table
-    rounds to ms), and the .sketch bytes do not change."""
+    """HG_STAGE_TIMING on the card: the table names the host stages, as
+    last_stage_times does, then the step's parts, each above 0 in
+    last_part_times (the table rounds to ms), and the .sketch bytes do not
+    change."""
     import logging
 
     from hypergen_tpu_torch.cli import main
@@ -422,7 +431,8 @@ def test_cuda_stage_timing_logs_device_stages(cuda, tmp_path, monkeypatch):
 
     def spy(self, *a, **kw):
         out = orig(self, *a, **kw)
-        totals.append(dict(self.last_device_times))
+        assert set(self.last_stage_times) == HOST_STAGES
+        totals.append(dict(self.last_part_times))
         return out
 
     monkeypatch.setattr(Sketcher, "sketch_files", spy)
@@ -446,7 +456,10 @@ def test_cuda_stage_timing_logs_device_stages(cuda, tmp_path, monkeypatch):
     finally:
         logger.removeHandler(handler)
     (msg,) = [m for m in seen if m.startswith("sketch stage timing:")]
-    logged = {ln.split(": ")[0] for ln in msg.splitlines()[1:]}
+    stages, parts = msg.split(
+        "step parts (the host's enqueue, inside dispatch):")
+    assert {ln.split(": ")[0] for ln in stages.splitlines()[1:]} == HOST_STAGES
+    logged = {ln.split(": ")[0] for ln in parts.splitlines() if ln}
     for stage in ("hash", "compact", "distinct", "encode"):
         assert stage in logged and totals[-1][stage] > 0, (stage, msg)
     assert ((tmp_path / "on.sketch").read_bytes()
@@ -541,8 +554,8 @@ def test_cuda_sketch_files_depth_3_equals_depth_1(cuda, tmp_path):
                                     pipeline_depth=depth),
                     tmp_path / f"d{depth}.sketch")
         out.append((tmp_path / f"d{depth}.sketch").read_bytes())
-        assert sum(sk.last_device_times.values()) > 0
-        assert "collect" in sk.last_stage_times
+        assert set(sk.last_part_times) == set(STEP_PARTS)
+        assert set(sk.last_stage_times) == HOST_STAGES
     assert out[0] == out[1]
 
 
@@ -786,3 +799,49 @@ def test_cuda_encode_kernel_on_every_route(cuda):
                                       chunk_positions=4096)
         assert ek.encode_hv_i16.launches == before + n, route
         _same([got], [ref])
+
+
+@pytest.mark.cuda
+def test_cuda_hg_ranges_add_no_device_time(cuda, tmp_path):
+    """Profiled on the card, a small sketch_files, its .hgdb write and a
+    search of it: every device-side copy of an ``hg:`` range is a user
+    annotation, which the benchmark's trace (portbench/harness/trace.py)
+    does not count as the card's work, so the union of the device
+    intervals it keeps is the union of the kernels', copies' and sets'."""
+    import argparse
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hypergen_tpu_torch.io import sketch_db as tdb
+    from hypergen_tpu_torch.parallel.search import run_search_cli
+    from portbench.harness import trace as bench_trace
+
+    paths = _write_genomes(tmp_path / "g", [60_000, 9_000, 70_000, 8_000],
+                           seed=86)
+    sk = Sketcher(SketchParams(scaled=40, hv_d=1024), device=cuda,
+                  chunk_positions=4096, batch=2)
+    sk.sketch_files(paths, progress=False)  # builds and warms up
+    db = tmp_path / "db.hgdb"
+    args = argparse.Namespace(path_r=db, path_q=db, out=tmp_path / "s.tsv",
+                              top_k=2, ani_th=0.0)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        sketches = sk.sketch_files(paths, progress=False)
+        tdb.dump_sharded_db(tdb.sketches_to_db(sketches), db, n_shards=2)
+        run_search_cli(args, tdb.load_sharded_db, [cuda])
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    host = {e.name() for e in events if e.name().startswith("hg:")
+            and not str(e.device_type()).endswith("CUDA")}
+    assert {"hg:dispatch", "hg:encode", "hg:db_load_read",
+            "hg:search_dot_topk"} <= host
+    on_card = [e for e in events if str(e.device_type()).endswith("CUDA")]
+    for e in on_card:
+        if e.name().startswith("hg:"):
+            assert e.is_user_annotation(), e.name()
+            assert not bench_trace._is_device(e), e.name()
+    work = [(e.start_ns(), e.end_ns()) for e in on_card
+            if not e.is_user_annotation()]
+    kept = [(e.start_ns(), e.end_ns()) for e in on_card
+            if bench_trace._is_device(e)]
+    assert work and bench_trace._union(kept) == bench_trace._union(work)

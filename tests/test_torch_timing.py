@@ -2,7 +2,8 @@
 
 ``hypergen_tpu_torch.utils.timing.StageTimer`` is the JAX package's class:
 the same spans on the same clock give the same totals, counts and report
-text (tolerance 0). ``SketchTimer`` charges a nested span to itself only.
+text (tolerance 0). ``SketchTimer`` charges a nested span to itself only
+and keeps the step's parts out of its stages, on the CPU as on a card.
 ``HG_TRACE_DIR`` wraps a CLI command in a ``torch.profiler`` trace, and
 ``HG_STAGE_TIMING`` logs ``Sketcher.sketch_files``' stage table without
 changing a byte of the ``.sketch``.
@@ -18,14 +19,13 @@ import pytest
 from hypergen_tpu.utils import timing as jtiming
 from hypergen_tpu_torch import utils as tutils
 from hypergen_tpu_torch.cli import main
-from hypergen_tpu_torch.models.sketcher import Sketcher
+from hypergen_tpu_torch.models.sketcher import STEP_PARTS, Sketcher
 from hypergen_tpu_torch.params import SketchParams
 from hypergen_tpu_torch.utils import timing as ttiming
 
-# the sketch step's stages on a folder of small genomes (one batch route):
-# without a CUDA stream the device spans are host spans too
-BATCH_STAGES = {"io_pool", "fasta_read", "pack", "dispatch", "upload", "hash",
-                "compact", "distinct", "encode", "download", "collect",
+# the sketch step's stages on a folder of small genomes (one batch route);
+# the step's parts (sketcher.STEP_PARTS) run inside dispatch, apart
+BATCH_STAGES = {"io_pool", "fasta_read", "pack", "dispatch", "collect",
                 "compress"}
 
 
@@ -71,19 +71,25 @@ def test_stage_timer_empty_report_matches_jax():
 
 
 def test_sketch_timer_charges_nested_spans_once(monkeypatch):
-    # the outer span opens at 101 and closes at 111.5; inside it, hash
-    # runs 102 -> 105 and 110 -> 110.5 (no CUDA stream: the host clock)
-    monkeypatch.setattr(time, "monotonic", _Clock([1, 1, 3, 5, 0.5, 1]))
-    timer = ttiming.SketchTimer()
-    with timer.stage("huge:tiled"):
-        with timer.stage("hash", device=True):
-            pass
-        with timer.stage("hash"):
+    # the outer stage opens at 101 s and closes at 111.5 s; inside it,
+    # dispatch runs 102 -> 105 and 110 -> 110.5 (the spans' clock, in ns);
+    # the step's part inside the first dispatch (103 -> 104) is a span of
+    # its own, outside the stages' tiling
+    ns = _Clock([1, 1, 1, 1, 1, 5, 0.5, 1])
+    monkeypatch.setattr(time, "perf_counter_ns", lambda: round(ns() * 1e9))
+    timer = ttiming.SketchTimer(("encode",))
+    with timer.stage("huge_tiled"):
+        with timer.stage("dispatch"):
+            with ttiming.span("encode"):
+                pass
+        with timer.stage("dispatch"):
             pass
     monkeypatch.undo()
     timer.resolve()
-    assert dict(timer.totals) == {"huge:tiled": 7.0, "hash": 3.5}
-    assert dict(timer.counts) == {"huge:tiled": 1, "hash": 2}
+    assert dict(timer.totals) == {"huge_tiled": 7.0, "dispatch": 3.5}
+    assert dict(timer.counts) == {"huge_tiled": 1, "dispatch": 2}
+    assert timer.part_totals == {"encode": 1.0}
+    assert timer.part_counts == {"encode": 1}
 
 
 def test_maybe_profile_off_is_a_no_op(tmp_path):
@@ -141,8 +147,12 @@ def test_stage_timing_logs_the_table_and_keeps_bytes(tmp_path, monkeypatch,
         logger.removeHandler(caplog.handler)
     (msg,) = [r.getMessage() for r in caplog.records
               if r.getMessage().startswith("sketch stage timing:")]
+    head = "step parts (the host's enqueue, inside dispatch):"
     lines = msg.splitlines()[1:]
-    assert {ln.split(":")[0] for ln in lines} == BATCH_STAGES
+    cut = lines.index(head)
+    assert {ln.split(":")[0] for ln in lines[:cut]} == BATCH_STAGES
+    assert {ln.split(":")[0] for ln in lines[cut + 1:]} == set(STEP_PARTS)
+    del lines[cut]
     assert all(ln.endswith(" calls") and "s over " in ln for ln in lines)
     assert ((tmp_path / "on.sketch").read_bytes()
             == (tmp_path / "off.sketch").read_bytes())
@@ -162,7 +172,7 @@ def test_last_stage_times_name_the_stages(tmp_path):
     before = dict(sk.last_stage_times)
     sk.sketch_files(sorted(g.iterdir()), progress=False)
     assert before == {}
-    assert set(sk.last_stage_times) == BATCH_STAGES | {"huge:tiled"}
+    assert set(sk.last_stage_times) == BATCH_STAGES | {"huge_tiled"}
     assert sk._timer is None  # no span outlives the call
 
 
@@ -183,6 +193,6 @@ def test_huge_span_excludes_the_steps(monkeypatch, route):
     timer, sk._timer = sk._timer, None
     timer.resolve()
     assert set(timer.totals) == BATCH_STAGES - {
-        "io_pool", "fasta_read", "compress"} | {f"huge:{route}"}
-    assert timer.counts[f"huge:{route}"] == 1
+        "io_pool", "fasta_read", "compress"} | {f"huge_{route}"}
+    assert timer.counts[f"huge_{route}"] == 1
     assert 0 <= sum(timer.totals.values()) <= wall
