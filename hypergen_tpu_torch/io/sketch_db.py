@@ -19,6 +19,7 @@ Two formats:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import struct
 from pathlib import Path
@@ -256,10 +257,46 @@ def dump_sharded_db(db: ShardedDB, out_dir, n_shards: int = 1) -> None:
         (out / "manifest.json").write_text(json.dumps(manifest, indent=1))
 
 
+def _read_npy_into(path: Path, out: np.ndarray) -> bool:
+    """Read a ``.npy`` file's payload straight into ``out`` (C-contiguous).
+
+    Returns False, having read no payload, where the file's header is not
+    the one ``np.save`` writes for an array of ``out``'s shape and dtype in
+    C order (header version 1.0 or 2.0). Raises ValueError naming the file
+    where the payload is shorter than the header says.
+    """
+    with open(path, "rb") as f:
+        try:
+            version = np.lib.format.read_magic(f)
+            if version == (1, 0):
+                header = np.lib.format.read_array_header_1_0(f)
+            elif version == (2, 0):
+                header = np.lib.format.read_array_header_2_0(f)
+            else:
+                return False
+        except ValueError:
+            return False
+        if header != (out.shape, False, out.dtype):
+            return False
+        got = f.readinto(out.reshape(-1).view(np.uint8))
+    if got != out.nbytes:
+        raise ValueError(
+            f"{path}: truncated .npy payload, {got} of {out.nbytes} bytes")
+    return True
+
+
 def load_sharded_db(path, shard_ids: Optional[List[int]] = None) -> ShardedDB:
-    """Load all (or selected) shards of an .hgdb directory, in the spans
-    ``db_load_manifest`` (manifest.json and the names), ``db_load_read``
-    (the shards' files) and ``db_load_assemble`` (their concatenation)."""
+    """Load all (or selected) shards of an .hgdb directory in global row
+    order, in the spans ``db_load_manifest`` (manifest.json, the names and
+    each shard's row offset), ``db_load_assemble`` (one HV and one norm
+    array for all the selected rows) and ``db_load_read`` (each shard's
+    ``.npy`` payload read straight into its rows of those arrays).
+
+    A shard whose header is not the one ``dump_sharded_db`` and
+    ``append_db_shard`` write (``<i2`` HVs of shape ``(rows, hv_d)``,
+    ``<i4`` norms of shape ``(rows,)``, C order, header version 1.0 or 2.0)
+    sends the whole load to ``np.load`` and ``np.concatenate`` in the span
+    ``db_load_fallback``, which returns the files' arrays as they are."""
     root = Path(path)
     with span("db_load_manifest"):
         manifest = json.loads((root / "manifest.json").read_text())
@@ -271,13 +308,23 @@ def load_sharded_db(path, shard_ids: Optional[List[int]] = None) -> ShardedDB:
             shards = [s for s in shards if s["id"] in set(shard_ids)]
         rows = [r for s in shards for r in range(s["rows"][0], s["rows"][1])]
         names = [manifest["names"][r] for r in rows]
-    with span("db_load_read"):
-        hvs = [np.load(root / s["hv"]) for s in shards]
-        norms = [np.load(root / s["norm"]) for s in shards]
+        hv_d = manifest["hv_d"]
+        # each selected shard's first row in the arrays loaded (not its
+        # global row: a subset packs its shards together)
+        bounds = list(itertools.accumulate(
+            (s["rows"][1] - s["rows"][0] for s in shards), initial=0))
     with span("db_load_assemble"):
-        hvs = (np.concatenate(hvs) if hvs
-               else np.zeros((0, manifest["hv_d"]), np.int16))
-        norms = np.concatenate(norms) if norms else np.zeros((0,), np.int32)
+        hvs = np.empty((bounds[-1], hv_d), np.int16)
+        norms = np.empty((bounds[-1],), np.int32)
+    with span("db_load_read"):
+        in_place = all(
+            _read_npy_into(root / s["hv"], hvs[a:b])
+            and _read_npy_into(root / s["norm"], norms[a:b])
+            for s, a, b in zip(shards, bounds[:-1], bounds[1:]))
+    if not in_place:
+        with span("db_load_fallback"):
+            hvs = np.concatenate([np.load(root / s["hv"]) for s in shards])
+            norms = np.concatenate([np.load(root / s["norm"]) for s in shards])
     return ShardedDB(
         ksize=manifest["ksize"],
         scaled=manifest["scaled"],

@@ -17,8 +17,9 @@ thread only (the parser threads open none):
   inside ``dispatch`` the host's enqueue of each part of the step
   (``sketcher.STEP_PARTS``);
 - the ``.hgdb`` write and load (``io/sketch_db.py``): ``db_decompress``,
-  ``db_save``, ``db_load_manifest``, ``db_load_read``,
-  ``db_load_assemble``;
+  ``db_save``, ``db_load_manifest``, ``db_load_assemble``,
+  ``db_load_read`` and, for shards not in ``np.save``'s own layout,
+  ``db_load_fallback``;
 - the search call (``parallel/search.py``): ``search_mode_scan``,
   ``search_upload``, ``search_dot_topk``, ``search_fetch``,
   ``search_host_chain``.

@@ -10,6 +10,8 @@ port's sources for any import of the JAX package or of jax.
 import ast
 import dataclasses
 import gzip
+import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +27,7 @@ from hypergen_tpu_torch.io import fastx as tfastx
 from hypergen_tpu_torch.io import fastx_native as tnative
 from hypergen_tpu_torch.io import sketch_db as tdb
 from hypergen_tpu_torch.ops.kernels import build
+from hypergen_tpu_torch.utils.timing import SPANS
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -168,6 +171,169 @@ def test_hgdb_bytes_match_jax(tmp_path, monkeypatch):
     a, b = tdb.load_sharded_db("j.hgdb"), jdb.load_sharded_db("t.hgdb")
     np.testing.assert_array_equal(a.hvs, b.hvs)
     assert a.names == b.names
+
+
+# -- the .hgdb load: each shard's payload read into its rows of one array --
+
+SIZES = (5, 0, 3, 9, 1, 4, 7, 2)  # rows of shards 0-7; shard 1 has none
+D = 64
+
+
+def _hgdb(root: Path):
+    """An .hgdb of the uneven SIZES, listed out of row order in its
+    manifest; its files as np.save writes them."""
+    rng = np.random.default_rng(15)
+    n = sum(SIZES)
+    db = tdb.ShardedDB(
+        ksize=21, scaled=1500, canonical=True, seed=123, hv_d=D,
+        names=[f"g{i}.fna" for i in range(n)],
+        hvs=rng.integers(-2**15, 2**15, size=(n, D)).astype(np.int16),
+        norms=rng.integers(0, 2**31, size=n).astype(np.int32))
+    tdb.dump_sharded_db(db, root)
+    manifest = json.loads((root / "manifest.json").read_text())
+    shards, row = [], 0
+    for i, rows in enumerate(SIZES):
+        sh = {"id": i, "rows": [row, row + rows],
+              "hv": f"shard_{i:05d}_hv.npy", "norm": f"shard_{i:05d}_norm.npy"}
+        np.save(root / sh["hv"], db.hvs[row:row + rows])
+        np.save(root / sh["norm"], db.norms[row:row + rows])
+        shards.append(sh)
+        row += rows
+    manifest["shards"] = shards[3:] + shards[:3]
+    (root / "manifest.json").write_text(json.dumps(manifest))
+    return manifest
+
+
+def _concatenated(root: Path, manifest, ids=None):
+    """The load as np.load of each selected shard and np.concatenate."""
+    shards = sorted(manifest["shards"], key=lambda sh: sh["rows"][0])
+    shards = [s for s in shards if ids is None or s["id"] in ids]
+    return (np.concatenate([np.load(root / s["hv"]) for s in shards]),
+            np.concatenate([np.load(root / s["norm"]) for s in shards]),
+            [manifest["names"][r] for s in shards for r in range(*s["rows"])])
+
+
+def _same(db, want):
+    hvs, norms, names = want
+    assert db.hvs.dtype == hvs.dtype and db.norms.dtype == norms.dtype
+    assert db.hvs.shape == hvs.shape and db.norms.shape == norms.shape
+    assert db.hvs.tobytes() == hvs.tobytes()
+    assert db.norms.tobytes() == norms.tobytes()
+    assert db.names == names
+
+
+def test_hgdb_load_reads_shards_in_place(tmp_path, monkeypatch):
+    manifest = _hgdb(tmp_path / "db.hgdb")
+    want = _concatenated(tmp_path / "db.hgdb", manifest)
+    made = []
+    empty = np.empty
+
+    def spy_empty(shape, dtype=float, *a, **k):
+        made.append((shape, np.dtype(dtype)))
+        return empty(shape, dtype, *a, **k)
+
+    def refuse(*a, **k):
+        raise AssertionError("the in-place load concatenated or np.loaded")
+
+    monkeypatch.setattr(np, "empty", spy_empty)
+    monkeypatch.setattr(np, "concatenate", refuse)
+    monkeypatch.setattr(np, "load", refuse)
+    db = tdb.load_sharded_db(tmp_path / "db.hgdb")
+    monkeypatch.undo()
+    _same(db, want)
+    assert db.hvs.dtype == np.int16 and db.norms.dtype == np.int32
+    assert db.hvs.shape == (sum(SIZES), D) and db.norms.shape == (sum(SIZES),)
+    assert db.hvs.flags.c_contiguous and db.norms.flags.c_contiguous
+    assert made == [((sum(SIZES), D), np.dtype(np.int16)),
+                    ((sum(SIZES),), np.dtype(np.int32))]
+
+
+@pytest.mark.parametrize("ids", [[6, 0, 3], [7, 1, 2]],
+                         ids=["out_of_order", "with_empty_shard"])
+def test_hgdb_load_subset_in_place(tmp_path, ids):
+    manifest = _hgdb(tmp_path / "db.hgdb")
+    before = SPANS.db_load_fallback.n
+    db = tdb.load_sharded_db(tmp_path / "db.hgdb", shard_ids=ids)
+    _same(db, _concatenated(tmp_path / "db.hgdb", manifest, ids))
+    assert SPANS.db_load_fallback.n == before
+
+
+@pytest.mark.parametrize("ids", [[], [1]], ids=["no_shard", "empty_shard"])
+def test_hgdb_load_no_rows(tmp_path, ids):
+    _hgdb(tmp_path / "db.hgdb")
+    db = tdb.load_sharded_db(tmp_path / "db.hgdb", shard_ids=ids)
+    assert db.hvs.shape == (0, D) and db.hvs.dtype == np.int16
+    assert db.norms.shape == (0,) and db.norms.dtype == np.int32
+    assert db.names == []
+
+
+def _int32_hv(path, a):
+    np.save(path, a.astype(np.int32))
+
+
+def _fortran_hv(path, a):
+    np.save(path, np.asfortranarray(a))
+
+
+def _v3_header_hv(path, a):
+    with open(path, "wb") as f:
+        np.lib.format.write_array(f, a, version=(3, 0))
+
+
+def _big_endian_norm(path, a):
+    np.save(path, a.astype(">i4"))
+
+
+@pytest.mark.parametrize("rewrite", [_int32_hv, _fortran_hv, _v3_header_hv,
+                                     _big_endian_norm],
+                         ids=["int32", "fortran", "header_v3", "big_endian"])
+def test_hgdb_load_falls_back_as_before(tmp_path, rewrite):
+    root = tmp_path / "db.hgdb"
+    manifest = _hgdb(root)
+    kind = "norm" if rewrite is _big_endian_norm else "hv"
+    path = root / f"shard_00006_{kind}.npy"
+    rewrite(path, np.load(path))
+    want = _concatenated(root, manifest)
+    before = {n: SPANS[n].n for n in ("db_load_fallback", "db_load_read")}
+    _same(tdb.load_sharded_db(root), want)
+    assert SPANS.db_load_fallback.n == before["db_load_fallback"] + 1
+    assert SPANS.db_load_read.n == before["db_load_read"] + 1
+
+
+@pytest.mark.parametrize("kind", ["hv", "norm"])
+def test_hgdb_load_truncated_shard_names_it(tmp_path, kind):
+    _hgdb(tmp_path / "db.hgdb")
+    path = tmp_path / "db.hgdb" / f"shard_00003_{kind}.npy"
+    path.write_bytes(path.read_bytes()[:-3])
+    with pytest.raises(ValueError, match=re.escape(str(path))):
+        tdb.load_sharded_db(tmp_path / "db.hgdb")
+
+
+def test_hgdb_load_spans_in_place(tmp_path):
+    _hgdb(tmp_path / "db.hgdb")
+    names = ("db_load_manifest", "db_load_assemble", "db_load_read",
+             "db_load_fallback")
+    before = SPANS.snapshot(names)
+    tdb.load_sharded_db(tmp_path / "db.hgdb")
+    after = SPANS.snapshot(names)
+    for n in names[:3]:
+        assert after[n][1] == before[n][1] + 1, n
+        assert after[n][0] > before[n][0], n
+    assert after["db_load_fallback"] == before["db_load_fallback"]
+
+
+def test_jax_hgdb_loads_in_place(tmp_path, monkeypatch):
+    """A .hgdb written by the JAX package has np.save's own layout."""
+    monkeypatch.chdir(tmp_path)
+    db = jdb.sketches_to_db(_sketches(jdb, 7))
+    jdb.dump_sharded_db(db, "j.hgdb", 3)
+    before = SPANS.db_load_fallback.n
+    got, want = tdb.load_sharded_db("j.hgdb"), jdb.load_sharded_db("j.hgdb")
+    assert SPANS.db_load_fallback.n == before
+    assert got.hvs.dtype == want.hvs.dtype and got.norms.dtype == want.norms.dtype
+    np.testing.assert_array_equal(got.hvs, want.hvs)
+    np.testing.assert_array_equal(got.norms, want.norms)
+    assert got.names == want.names
 
 
 def _port_sources():

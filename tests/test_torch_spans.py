@@ -31,7 +31,7 @@ from portbench.harness.runner import RunData
 STAGES = ("io_pool", "fasta_read", "pack", "dispatch", "collect", "compress")
 SEARCH = ("search_mode_scan", "search_upload", "search_dot_topk",
           "search_fetch", "search_host_chain")
-LOAD = ("db_load_manifest", "db_load_read", "db_load_assemble")
+LOAD = ("db_load_manifest", "db_load_assemble", "db_load_read")
 
 
 def _profiled(fn):
