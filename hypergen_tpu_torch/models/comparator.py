@@ -7,6 +7,13 @@ split into int8 planes once (``preload_rows``); every printed ANI comes from
 the host float32 chain, so the TSVs are byte-identical to the JAX package's.
 The host-only functions below are copies of the JAX module's, which imports
 jax at its top.
+
+`dist`'s pair path is timed in the spans and counted in the counters of
+``utils.timing``: ``dist_compare`` around a whole ``ani_pairs_thresholded``
+or ``ani_pairs_streamed`` call, ``dist_preload`` around the row tiles'
+upload and split, ``dist_fetch`` and ``dist_host_chain`` in each tile,
+``dist_finish`` and ``dist_report``; the counters ``dist_candidates``
+and ``dist_kept``.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from hypergen_tpu_torch.ops.ani import (
     SMALL_SPLIT_MAX, abs_bound, dot_i16_any, dot_threshold_compact,
     presplit_rows, presplit_rows_small,
 )
+from hypergen_tpu_torch.utils.timing import count, span
 
 log = logging.getLogger("hypergen")
 
@@ -135,13 +143,18 @@ class Comparator:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def preload_rows(self, hv: np.ndarray) -> List:
-        """Row tiles uploaded once, for reuse across query tiles.
+        """Row tiles uploaded once, for reuse across query tiles (in the
+        span dist_preload).
 
         With an int8 mode the tiles are stored split: SmallSplit (h, l,
         h + l) when the rows fit SMALL_SPLIT_MAX, else (hi, lo, row); the
         elementwise split then never repeats per query tile. An over-bound
         query batch against SmallSplit tiles rebuilds the exact rows
         (dot_i16_any)."""
+        with span("dist_preload"):
+            return self._row_tiles(hv)
+
+    def _row_tiles(self, hv: np.ndarray) -> List:
         tm = self.tile_m
         small = self.mode is True and self._bound(hv) <= SMALL_SPLIT_MAX
         out = []
@@ -156,13 +169,14 @@ class Comparator:
 
     def preload_ref(self, db: ShardedDB) -> List:
         """Device-resident (hv, norm) row tiles for ani_pairs_thresholded;
-        hv tiles as preload_rows stores them."""
+        hv tiles as preload_rows stores them (in the span dist_preload)."""
         tm = self.tile_m
-        return [
-            (hv, self._upload(db.norms[mi : mi + tm]))
-            for hv, mi in zip(self.preload_rows(db.hvs),
-                              range(0, db.hvs.shape[0], tm))
-        ]
+        with span("dist_preload"):
+            return [
+                (hv, self._upload(db.norms[mi : mi + tm]))
+                for hv, mi in zip(self._row_tiles(db.hvs),
+                                  range(0, db.hvs.shape[0], tm))
+            ]
 
     def dot_tiles(
         self, r_hv: np.ndarray, q_hv: np.ndarray, r_blocks: List | None = None,
@@ -242,33 +256,39 @@ class Comparator:
         returned indices stay local, and n_total is only meaningful at zero
         offsets.
         """
-        M = ref_db.hvs.shape[0]
-        if ref_blocks is None:
-            ref_blocks = self.preload_ref(ref_db)
-        mode = self.dot_mode(ref_db.hvs, query_db.hvs)
-        out_i: List[np.ndarray] = []
-        out_j: List[np.ndarray] = []
-        out_a: List[np.ndarray] = []
-        for nj, q, rows in self._query_tiles(query_db, M, symmetric,
-                                             ref_offset, query_offset):
-            n = q.shape[0]
-            nq = self._upload(query_db.norms[nj : nj + n])
-            for bi, mi in rows:
-                r, nr = ref_blocks[bi]
-                idx, dot = dot_threshold_compact(
-                    r, nr, q, nq, threshold, self.ksize, mode
-                )
-                idx, dot = idx.cpu().numpy(), dot.cpu().numpy()
-                ii, jj = mi + idx // n, nj + idx % n
-                ani = ani_host_pairs(
-                    dot, ref_db.norms[ii], query_db.norms[jj], self.ksize
-                )
-                keep = ani >= np.float32(threshold)
-                out_i.append(ii[keep])
-                out_j.append(jj[keep])
-                out_a.append(ani[keep])
-        return _finish_pairs(out_i, out_j, out_a, M, query_db.hvs.shape[0],
-                             symmetric, ref_offset, query_offset)
+        with span("dist_compare"):
+            M = ref_db.hvs.shape[0]
+            if ref_blocks is None:
+                ref_blocks = self.preload_ref(ref_db)
+            mode = self.dot_mode(ref_db.hvs, query_db.hvs)
+            out_i: List[np.ndarray] = []
+            out_j: List[np.ndarray] = []
+            out_a: List[np.ndarray] = []
+            for nj, q, rows in self._query_tiles(query_db, M, symmetric,
+                                                 ref_offset, query_offset):
+                n = q.shape[0]
+                nq = self._upload(query_db.norms[nj : nj + n])
+                for bi, mi in rows:
+                    r, nr = ref_blocks[bi]
+                    idx, dot = dot_threshold_compact(
+                        r, nr, q, nq, threshold, self.ksize, mode
+                    )
+                    with span("dist_fetch"):
+                        idx, dot = idx.cpu().numpy(), dot.cpu().numpy()
+                    count("dist_candidates", idx.size)
+                    with span("dist_host_chain"):
+                        ii, jj = mi + idx // n, nj + idx % n
+                        ani = ani_host_pairs(
+                            dot, ref_db.norms[ii], query_db.norms[jj],
+                            self.ksize
+                        )
+                        keep = ani >= np.float32(threshold)
+                        out_i.append(ii[keep])
+                        out_j.append(jj[keep])
+                        out_a.append(ani[keep])
+            return _finish_pairs(out_i, out_j, out_a, M,
+                                 query_db.hvs.shape[0], symmetric,
+                                 ref_offset, query_offset)
 
     def ani_pairs_streamed(
         self, ref_db: ShardedDB, query_db: ShardedDB, symmetric: bool,
@@ -282,46 +302,57 @@ class Comparator:
         O(survivors). ref_blocks from preload_rows; same returns and offset
         semantics as ani_pairs_thresholded.
         """
-        M = ref_db.hvs.shape[0]
-        if ref_blocks is None:
-            ref_blocks = self.preload_rows(ref_db.hvs)
-        mode = self.dot_mode(ref_db.hvs, query_db.hvs)
-        out_i: List[np.ndarray] = []
-        out_j: List[np.ndarray] = []
-        out_a: List[np.ndarray] = []
-        for nj, q, rows in self._query_tiles(query_db, M, symmetric,
-                                             ref_offset, query_offset):
-            for bi, mi in rows:
-                tile = dot_i16_any(ref_blocks[bi], q, mode).cpu().numpy()
-                ani = ani_f32_host(
-                    tile,
-                    ref_db.norms[mi : mi + tile.shape[0]],
-                    query_db.norms[nj : nj + tile.shape[1]],
-                    self.ksize,
-                )
-                ri, qi = np.nonzero(ani >= np.float32(threshold))
-                out_i.append((mi + ri).astype(np.int64))
-                out_j.append((nj + qi).astype(np.int64))
-                out_a.append(ani[ri, qi])
-        return _finish_pairs(out_i, out_j, out_a, M, query_db.hvs.shape[0],
-                             symmetric, ref_offset, query_offset)
+        with span("dist_compare"):
+            M = ref_db.hvs.shape[0]
+            if ref_blocks is None:
+                ref_blocks = self.preload_rows(ref_db.hvs)
+            mode = self.dot_mode(ref_db.hvs, query_db.hvs)
+            out_i: List[np.ndarray] = []
+            out_j: List[np.ndarray] = []
+            out_a: List[np.ndarray] = []
+            for nj, q, rows in self._query_tiles(query_db, M, symmetric,
+                                                 ref_offset, query_offset):
+                for bi, mi in rows:
+                    tile = dot_i16_any(ref_blocks[bi], q, mode)
+                    with span("dist_fetch"):
+                        tile = tile.cpu().numpy()
+                    count("dist_candidates", tile.size)
+                    with span("dist_host_chain"):
+                        ani = ani_f32_host(
+                            tile,
+                            ref_db.norms[mi : mi + tile.shape[0]],
+                            query_db.norms[nj : nj + tile.shape[1]],
+                            self.ksize,
+                        )
+                        ri, qi = np.nonzero(ani >= np.float32(threshold))
+                        out_i.append((mi + ri).astype(np.int64))
+                        out_j.append((nj + qi).astype(np.int64))
+                        out_a.append(ani[ri, qi])
+            return _finish_pairs(out_i, out_j, out_a, M,
+                                 query_db.hvs.shape[0], symmetric,
+                                 ref_offset, query_offset)
 
 
 def _finish_pairs(out_i, out_j, out_a, M: int, N: int, symmetric: bool,
                   ref_offset: int, query_offset: int):
     """Concatenate tile survivors, keep global j > i when symmetric, and
-    restore the reference enumeration order (i, then j)."""
-    ii = np.concatenate(out_i).astype(np.int64) if out_i else np.zeros(0, np.int64)
-    jj = np.concatenate(out_j).astype(np.int64) if out_j else np.zeros(0, np.int64)
-    aa = np.concatenate(out_a) if out_a else np.zeros(0, np.float32)
-    if symmetric:
-        keep = (ii + ref_offset) < (jj + query_offset)
-        ii, jj, aa = ii[keep], jj[keep], aa[keep]
-        n_total = M * (M - 1) // 2
-    else:
-        n_total = M * N
-    order = np.lexsort((jj, ii))
-    return ii[order], jj[order], aa[order], n_total
+    restore the reference enumeration order (i, then j); in the span
+    dist_finish, the pairs kept counted in dist_kept."""
+    with span("dist_finish"):
+        ii = (np.concatenate(out_i).astype(np.int64) if out_i
+              else np.zeros(0, np.int64))
+        jj = (np.concatenate(out_j).astype(np.int64) if out_j
+              else np.zeros(0, np.int64))
+        aa = np.concatenate(out_a) if out_a else np.zeros(0, np.float32)
+        if symmetric:
+            keep = (ii + ref_offset) < (jj + query_offset)
+            ii, jj, aa = ii[keep], jj[keep], aa[keep]
+            n_total = M * (M - 1) // 2
+        else:
+            n_total = M * N
+        count("dist_kept", ii.size)
+        order = np.lexsort((jj, ii))
+        return ii[order], jj[order], aa[order], n_total
 
 
 def format_ani_report(
@@ -374,23 +405,25 @@ def write_ani_report(
     Rows are stable-sorted by ANI ascending then reversed, cut at the
     threshold (and at top_k rows when given) and printed '%.3f'
     (reference:src/utils.rs:260-290), in chunks of chunk_rows to bound the
-    formatted strings' memory. Byte-identical to format_ani_report.
+    formatted strings' memory. Byte-identical to format_ani_report. In the
+    span dist_report.
     """
-    ani = np.asarray(ani)
-    # filter before sorting: NaN fails >= and would otherwise sort first in
-    # descending order; a stable sort of a subsequence keeps tie order
-    kept = np.flatnonzero(ani >= np.float32(threshold))
-    order = kept[np.argsort(ani[kept], kind="stable")[::-1]]
-    n_keep = min(kept.size, top_k) if top_k else kept.size
-    names_r = np.char.add(np.asarray(ref_names, dtype=np.str_), "\t")
-    names_q = np.char.add(np.asarray(query_names, dtype=np.str_), "\t")
-    with open(out_path, "w") as fh:
-        for lo in range(0, n_keep, chunk_rows):
-            sel = order[lo : min(lo + chunk_rows, n_keep)]
-            fh.write(_tsv_rows(
-                names_r[ref_idx[sel]], names_q[query_idx[sel]], ani[sel]
-            ))
-    return n_keep
+    with span("dist_report"):
+        ani = np.asarray(ani)
+        # filter before sorting: NaN fails >= and would otherwise sort first
+        # in descending order; a stable sort of a subsequence keeps tie order
+        kept = np.flatnonzero(ani >= np.float32(threshold))
+        order = kept[np.argsort(ani[kept], kind="stable")[::-1]]
+        n_keep = min(kept.size, top_k) if top_k else kept.size
+        names_r = np.char.add(np.asarray(ref_names, dtype=np.str_), "\t")
+        names_q = np.char.add(np.asarray(query_names, dtype=np.str_), "\t")
+        with open(out_path, "w") as fh:
+            for lo in range(0, n_keep, chunk_rows):
+                sel = order[lo : min(lo + chunk_rows, n_keep)]
+                fh.write(_tsv_rows(
+                    names_r[ref_idx[sel]], names_q[query_idx[sel]], ani[sel]
+                ))
+        return n_keep
 
 
 def _tsv_rows(ref_tab: np.ndarray, q_tab: np.ndarray,

@@ -22,7 +22,18 @@ thread only (the parser threads open none):
   ``db_load_fallback``;
 - the search call (``parallel/search.py``): ``search_mode_scan``,
   ``search_upload``, ``search_dot_topk``, ``search_fetch``,
-  ``search_host_chain``.
+  ``search_host_chain``;
+- `dist`'s pair path (``models/comparator.py``): ``dist_compare`` (a whole
+  ``ani_pairs_thresholded`` or ``ani_pairs_streamed``), ``dist_preload``,
+  and in each tile ``dist_fetch`` (the wait for the card and the copy to
+  the host) and ``dist_host_chain``; ``dist_finish`` and ``dist_report``.
+
+Beside the spans, ``count(name, n)`` adds to the process's integer counters
+(``COUNTERS.<name>``, 0 for a name never counted). `dist` counts
+``dist_candidates`` (pairs the card's margin test passes, fetched to the
+host; every pair of a tile on the streamed path) and ``dist_kept`` (pairs
+the host chain keeps: the report's rows when it has no top-k cap). Its
+tile products are ``SPANS.dist_fetch.n``.
 
 ``StageTimer`` is the JAX package's class: named host-clock spans and the
 same report. ``Sketcher.sketch_files`` uses ``SketchTimer``, a StageTimer
@@ -112,6 +123,24 @@ class SpanTotals:
 
 
 SPANS = SpanTotals()
+
+
+class Counters(dict):
+    """The process's integer counters by name, also read as attributes
+    (``COUNTERS.dist_kept``); a name never counted reads 0."""
+
+    def __getattr__(self, name: str) -> int:
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return self.get(name, 0)
+
+
+COUNTERS = Counters()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter ``COUNTERS.<name>``."""
+    COUNTERS[name] = COUNTERS.get(name, 0) + n
 
 
 class span:

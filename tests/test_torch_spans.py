@@ -4,10 +4,12 @@ Without a profiler a span enters no profiler range and its totals still
 advance; while one records, the sketch path (``sketch_files``, and
 ``submit_batch_packed``/``collect_batch`` called directly), the ``.hgdb``
 write and load and every search route put their ``hg:`` ranges in the
-trace, nested as called. The span totals over a ``sketch_files`` call equal
-its ``last_stage_times``. The benchmark's readers of the span totals
+trace, nested as called, and so does `dist`'s pair path, whose counters
+(``COUNTERS``) count the fetched and the kept pairs. The
+span totals over a ``sketch_files`` call equal its ``last_stage_times``.
+The benchmark's readers of the span totals and counters
 (``portbench/metrics``) are held to hand-built runs, and report nothing
-where the program keeps no span totals.
+where the program keeps no span totals or counters.
 """
 
 import argparse
@@ -17,14 +19,16 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from hypergen_tpu_torch.cli import run_dist
 from hypergen_tpu_torch.io import sketch_db as tdb
 from hypergen_tpu_torch.io.fastx import packed_from_codes
+from hypergen_tpu_torch.models.comparator import Comparator, write_ani_report
 from hypergen_tpu_torch.models.sketcher import STEP_PARTS, Sketcher
 from hypergen_tpu_torch.parallel import search as tsearch
 from hypergen_tpu_torch.params import SketchParams
 from hypergen_tpu_torch.utils import timing as ttiming
-from hypergen_tpu_torch.utils.timing import SPANS, span
-from portbench.harness import program_spans
+from hypergen_tpu_torch.utils.timing import COUNTERS, SPANS, span
+from portbench.harness import program_counters, program_spans
 from portbench.harness import spec as bench_spec
 from portbench.harness.runner import RunData
 
@@ -32,6 +36,9 @@ STAGES = ("io_pool", "fasta_read", "pack", "dispatch", "collect", "compress")
 SEARCH = ("search_mode_scan", "search_upload", "search_dot_topk",
           "search_fetch", "search_host_chain")
 LOAD = ("db_load_manifest", "db_load_assemble", "db_load_read")
+DIST = ("dist_compare", "dist_preload", "dist_fetch", "dist_host_chain",
+        "dist_finish", "dist_report")
+DIST_COUNTERS = ("dist_candidates", "dist_kept")
 
 
 def _profiled(fn):
@@ -278,6 +285,76 @@ def test_search_ranges_on_every_route(tmp_path, monkeypatch, devices, limit):
             == (tmp_path / "want.tsv").read_bytes())
 
 
+def _collection(tmp_path, n=300):
+    """An .hgdb of n random rows, row 1 a copy of row 0 (a pair at 100)."""
+    db = _db(np.random.default_rng(44), n)
+    db.hvs[1] = db.hvs[0]
+    db.norms[1] = db.norms[0]
+    tdb.dump_sharded_db(db, tmp_path / "c.hgdb", n_shards=2)
+    return db, tmp_path / "c.hgdb"
+
+
+def _dist_args(path, out, threshold):
+    return argparse.Namespace(path_r=path, path_q=path, out=out, ksize=21,
+                              hv_d=256, ani_th=threshold, device="cpu")
+
+
+def _counters():
+    return {k: getattr(COUNTERS, k) for k in DIST_COUNTERS}
+
+
+@pytest.mark.parametrize("threshold", [95.0, 40.0],
+                         ids=["thresholded", "streamed"])
+def test_dist_ranges_nest_as_called(tmp_path, threshold):
+    _, path = _collection(tmp_path)
+    out = tmp_path / "d.tsv"
+    before, counted = SPANS.snapshot(DIST), _counters()
+    _, ranges = _profiled(lambda: run_dist(_dist_args(path, out, threshold)))
+    assert _names(ranges) == {f"hg:{n}" for n in DIST + LOAD}
+    for n in ("dist_compare", "dist_report"):
+        assert _parents(ranges, f"hg:{n}") == {"test:call"}, n
+    for n in ("dist_preload", "dist_fetch", "dist_host_chain", "dist_finish"):
+        assert _parents(ranges, f"hg:{n}") == {"hg:dist_compare"}, n
+    assert all(SPANS[k].n > n for k, (_, n) in before.items())
+    # no top-k cap: the pairs kept are the report's rows
+    lines = out.read_text().count("\n")
+    assert lines >= 1
+    assert COUNTERS.dist_kept - counted["dist_kept"] == lines
+
+
+def test_dist_needs_no_profiler_range(tmp_path, monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("a profiler range entered with no profiler")
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    _, path = _collection(tmp_path)
+    before, counted = SPANS.snapshot(DIST), _counters()
+    run_dist(_dist_args(path, tmp_path / "d.tsv", 95.0))
+    assert all(SPANS[k].n > n for k, (_, n) in before.items())
+    assert COUNTERS.dist_candidates > counted["dist_candidates"]
+
+
+@pytest.mark.parametrize("path", ["thresholded", "streamed"])
+def test_dist_counters_count_the_tile_grid(tmp_path, path):
+    """300 rows in tiles of 128: a 3 x 3 grid, of which the 6 tiles on or
+    above the diagonal are computed and fetched, one dist_fetch each."""
+    db, _ = _collection(tmp_path)
+    comp = Comparator(ksize=21, device="cpu", tile_m=128, tile_n=128)
+    threshold = 95.0 if path == "thresholded" else 40.0
+    fetched, counted = SPANS.dist_fetch.n, _counters()
+    ri, qi, ani, _ = getattr(comp, f"ani_pairs_{path}")(
+        db, db, symmetric=True, threshold=threshold)
+    out = tmp_path / "d.tsv"
+    n = write_ani_report(out, db.names, db.names, ri, qi, ani, threshold)
+    got = {k: getattr(COUNTERS, k) - v for k, v in counted.items()}
+    assert SPANS.dist_fetch.n - fetched == 6
+    assert got["dist_kept"] == n == out.read_text().count("\n") >= 1
+    if path == "streamed":  # every pair of a computed tile
+        assert got["dist_candidates"] == 3 * 128 * 128 + 2 * 128 * 44 + 44 * 44
+    else:
+        assert got["dist_kept"] <= got["dist_candidates"] < 128 * 128
+
+
 # -- the benchmark's readers of the span totals -----------------------------
 
 def _run(counters, calls=4):
@@ -300,6 +377,16 @@ def _run(counters, calls=4):
                                   "dispatch.cpu_ns": 1000}, 50.0),
     ("sketch.db_decompress_ms_per_call", {"db_decompress.ns": 1_600_000_000,
                                           "db_decompress.n": 4}, 400.0),
+    ("dist.us_per_tile", {"dist_compare.ns": 8_000_000, "dist_fetch.n": 4},
+     2000.0),
+    ("dist.host_chain_ms_per_call", {"dist_host_chain.ns": 40_000_000,
+                                     "dist_host_chain.n": 8}, 10.0),
+    ("dist.report_ms_per_call", {"dist_finish.ns": 100_000_000,
+                                 "dist_finish.n": 4,
+                                 "dist_report.ns": 300_000_000,
+                                 "dist_report.n": 4}, 100.0),
+    ("dist.candidates_per_kept", {"dist_candidates": 1100,
+                                  "dist_kept": 1000}, 1.1),
 ])
 def test_span_metric_readers(metric, counters, want):
     reader = bench_spec.reader(metric)
@@ -319,3 +406,12 @@ def test_span_refs_need_the_programs_totals(monkeypatch):
         "pack.cpu_ns": "hypergen_tpu_torch.utils.timing:SPANS.pack.cpu_ns"}
     monkeypatch.delattr(ttiming, "SPANS")
     assert program_spans.refs(["pack"]) == {}
+
+
+def test_counter_refs_need_the_programs_counters(monkeypatch):
+    assert program_counters.refs(["dist_kept"]) == {
+        "dist_kept": "hypergen_tpu_torch.utils.timing:COUNTERS.dist_kept"}
+    assert bench_spec.counter_value(
+        "hypergen_tpu_torch.utils.timing:COUNTERS.t_never_counted") == 0
+    monkeypatch.delattr(ttiming, "COUNTERS")
+    assert program_counters.refs(["dist_kept"]) == {}
