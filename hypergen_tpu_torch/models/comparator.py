@@ -13,12 +13,19 @@ jax at its top.
 or ``ani_pairs_streamed`` call, ``dist_preload`` around the row tiles'
 upload and split, ``dist_fetch`` and ``dist_host_chain`` in each tile,
 ``dist_finish`` and ``dist_report``; the counters ``dist_candidates``
-and ``dist_kept``.
+and ``dist_kept``. The TSV rows of `dist` and `search` are formatted by
+the native routine ``csrc/tsv_rows.cpp`` (rows counted in
+``tsv_rows_native``) or, where it cannot run, by ``np.char``
+(``tsv_rows_fallback``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import locale
 import logging
+import subprocess
 from collections import OrderedDict
 from typing import Iterator, List, Tuple
 
@@ -30,6 +37,7 @@ from hypergen_tpu_torch.ops.ani import (
     SMALL_SPLIT_MAX, abs_bound, dot_i16_any, dot_threshold_compact,
     presplit_rows, presplit_rows_small,
 )
+from hypergen_tpu_torch.ops.kernels import build
 from hypergen_tpu_torch.utils.timing import count, span
 
 log = logging.getLogger("hypergen")
@@ -405,8 +413,8 @@ def write_ani_report(
     Rows are stable-sorted by ANI ascending then reversed, cut at the
     threshold (and at top_k rows when given) and printed '%.3f'
     (reference:src/utils.rs:260-290), in chunks of chunk_rows to bound the
-    formatted strings' memory. Byte-identical to format_ani_report. In the
-    span dist_report.
+    formatted rows' memory (_TsvWriter). Byte-identical to
+    format_ani_report. In the span dist_report.
     """
     with span("dist_report"):
         ani = np.asarray(ani)
@@ -415,24 +423,144 @@ def write_ani_report(
         kept = np.flatnonzero(ani >= np.float32(threshold))
         order = kept[np.argsort(ani[kept], kind="stable")[::-1]]
         n_keep = min(kept.size, top_k) if top_k else kept.size
-        names_r = np.char.add(np.asarray(ref_names, dtype=np.str_), "\t")
-        names_q = np.char.add(np.asarray(query_names, dtype=np.str_), "\t")
-        with open(out_path, "w") as fh:
+        with _TsvWriter(out_path, ref_names, query_names) as w:
             for lo in range(0, n_keep, chunk_rows):
                 sel = order[lo : min(lo + chunk_rows, n_keep)]
-                fh.write(_tsv_rows(
-                    names_r[ref_idx[sel]], names_q[query_idx[sel]], ani[sel]
-                ))
+                w.write(ref_idx[sel], query_idx[sel], ani[sel])
         return n_keep
+
+
+@functools.lru_cache(maxsize=None)
+def _tsv_lib():
+    """The native row formatter (``csrc/tsv_rows.cpp``), built at first use;
+    None where it cannot be built or loaded: the reports then take the
+    np.char path (_tsv_rows)."""
+    try:
+        lib = build.load("tsv_rows")
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        log.warning("native TSV row formatter unavailable, rows go through "
+                    "numpy: %s", e)
+        return None
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.hg_tsv_capacity.restype = ll
+    lib.hg_tsv_capacity.argtypes = [vp, ll, vp, ll, vp, vp, vp, ll]
+    lib.hg_tsv_rows.restype = ll
+    lib.hg_tsv_rows.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, vp]
+    return lib
+
+
+def _encode_names(names, encoding: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(bytes uint8 [B], offsets int64 [n + 1]) of each name followed by
+    its tab, encoded strictly in `encoding` (ASCII text as ASCII)."""
+    text = "\t".join(names) + "\t"
+    if text.isascii():
+        data = text.encode("ascii")
+        lens = np.fromiter(map(len, names), np.int64, len(names)) + 1
+    else:
+        parts = [(name + "\t").encode(encoding) for name in names]
+        data = b"".join(parts)
+        lens = np.fromiter(map(len, parts), np.int64, len(parts))
+    off = np.zeros(len(names) + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    return np.frombuffer(data, np.uint8), off
+
+
+def _native_rows(lib, names_r, names_q, ref_idx, query_idx,
+                 vals) -> np.ndarray | None:
+    """The rows' bytes (uint8) from the native formatter, or None where it
+    refuses them: an index outside its names, a value that is not a
+    float32 in [0, 1000) (NaN, inf and -0.0 included)."""
+    vals = np.asarray(vals)
+    if vals.dtype != np.float32:
+        return None
+    v = np.ascontiguousarray(vals)
+    ri = np.ascontiguousarray(ref_idx, dtype=np.int64)
+    qi = np.ascontiguousarray(query_idx, dtype=np.int64)
+    n = v.size
+    if not ri.shape == qi.shape == v.shape == (n,):
+        raise ValueError(f"row arrays of shapes {ri.shape}, {qi.shape}, "
+                         f"{v.shape}: want three of ({n},)")
+    (rb, ro), (qb, qo) = names_r, names_q
+    cap = lib.hg_tsv_capacity(ro.ctypes.data, ro.size - 1, qo.ctypes.data,
+                              qo.size - 1, ri.ctypes.data, qi.ctypes.data,
+                              v.ctypes.data, n)
+    if cap < 0:
+        return None
+    out = np.empty(cap, np.uint8)
+    written = lib.hg_tsv_rows(rb.ctypes.data, ro.ctypes.data, qb.ctypes.data,
+                              qo.ctypes.data, ri.ctypes.data, qi.ctypes.data,
+                              v.ctypes.data, n, out.ctypes.data)
+    return out[:written]
+
+
+class _TsvWriter:
+    """One report's file, to which ``write`` appends rows
+    `ref\\tquery\\t%.3f\\n`: the one home of the row format for `dist`
+    and `search`.
+
+    The native formatter (``csrc/tsv_rows.cpp``) writes a call's rows into
+    one byte buffer, written to the file in binary; the names are encoded
+    once a report (once for both sides when ``query_names is
+    ref_names``) with the codec of ``open(path, "w")``,
+    ``locale.getpreferredencoding(False)``, strict. A call whose rows it
+    refuses takes the np.char path (_tsv_rows), as every call does where
+    the library cannot be loaded or the names cannot be encoded. The
+    formatter writes its digits, tabs and newlines as ASCII, as every
+    locale codec does. Rows are counted in ``tsv_rows_native`` and
+    ``tsv_rows_fallback``.
+    """
+
+    def __init__(self, out_path, ref_names, query_names):
+        self.ref_names, self.query_names = ref_names, query_names
+        self.encoding = locale.getpreferredencoding(False)
+        self.lib = _tsv_lib()
+        self.names = None
+        if self.lib is not None:
+            try:
+                r = _encode_names(ref_names, self.encoding)
+                q = (r if query_names is ref_names
+                     else _encode_names(query_names, self.encoding))
+                self.names = (r, q)
+            except (TypeError, UnicodeEncodeError):
+                pass  # a name np.char converts, or one the rows may not use
+        self.fh = open(out_path, "w" if self.names is None else "wb")
+
+    def __enter__(self) -> "_TsvWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.fh.close()
+
+    @functools.cached_property
+    def _tabbed(self) -> Tuple[np.ndarray, np.ndarray]:
+        return (np.char.add(np.asarray(self.ref_names, dtype=np.str_), "\t"),
+                np.char.add(np.asarray(self.query_names, dtype=np.str_),
+                            "\t"))
+
+    def write(self, ref_idx: np.ndarray, query_idx: np.ndarray,
+              vals: np.ndarray) -> None:
+        """Append the rows of these gathered index and value arrays."""
+        if self.names is not None:
+            buf = _native_rows(self.lib, *self.names, ref_idx, query_idx,
+                               vals)
+            if buf is not None:
+                self.fh.write(buf)
+                count("tsv_rows_native", len(vals))
+                return
+        names_r, names_q = self._tabbed
+        text = _tsv_rows(names_r[ref_idx], names_q[query_idx], vals)
+        self.fh.write(text if self.names is None
+                      else text.encode(self.encoding))
+        count("tsv_rows_fallback", len(vals))
 
 
 def _tsv_rows(ref_tab: np.ndarray, q_tab: np.ndarray,
               vals: np.ndarray) -> str:
-    """Vectorized `ref\\tquery\\t%.3f\\n` assembly for gathered row arrays.
+    """Vectorized `ref\\tquery\\t%.3f\\n` assembly for gathered row arrays,
+    where the native formatter cannot run (_TsvWriter).
 
     np.char.mod routes the float32 through the same C '%.3f' double path
-    as an f-string, so bytes equal the scalar formatter's. The one home of
-    the row format for `dist` and `search`."""
+    as an f-string, so bytes equal the scalar formatter's."""
     return "".join(np.char.add(
         np.char.add(ref_tab, q_tab),
         np.char.add(np.char.mod("%.3f", vals), "\n"),
@@ -453,7 +581,7 @@ def write_search_report(
     ref_idx/ani are [N_queries, k_top]. Within each query the rows are
     stable-sorted descending by ANI with ties reversed and cut at the
     threshold: format_ani_report applied per query (reference:src/utils.rs:
-    262-286), assembled vectorized in chunks of queries. NaN ANIs (empty
+    262-286), written in chunks of queries (_TsvWriter). NaN ANIs (empty
     slots) never emit. Returns n_reported.
     """
     a = np.ascontiguousarray(np.asarray(ani, dtype=np.float32))
@@ -467,20 +595,16 @@ def write_search_report(
     ordc = np.argsort(a, axis=1, kind="stable")[:, ::-1]
     a_sorted = np.take_along_axis(a, ordc, axis=1)
     keep = a_sorted >= np.float32(threshold)
-    names_r = np.char.add(np.asarray(ref_names, dtype=np.str_), "\t")
-    names_q = np.char.add(np.asarray(query_names, dtype=np.str_), "\t")
     idx_sorted = np.take_along_axis(idx, ordc, axis=1)
     n = 0
-    with open(out_path, "w") as fh:
+    with _TsvWriter(out_path, ref_names, query_names) as w:
         for lo in range(0, N, chunk_queries):
             hi = min(lo + chunk_queries, N)
             qi, ci = np.nonzero(keep[lo:hi])
             if qi.size == 0:
                 continue
-            fh.write(_tsv_rows(
-                names_r[idx_sorted[lo:hi][qi, ci]], names_q[qi + lo],
-                a_sorted[lo:hi][qi, ci],
-            ))
+            w.write(idx_sorted[lo:hi][qi, ci], qi + lo,
+                    a_sorted[lo:hi][qi, ci])
             n += int(qi.size)
     return n
 

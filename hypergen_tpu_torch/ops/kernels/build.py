@@ -2,7 +2,8 @@
 
 Each source has a plain C entry point, so it builds in seconds without
 PyTorch's headers: a CUDA file (``<name>.cu``) with ``nvcc`` for sm_90a, a
-host file (``<name>.cpp``, the FASTA parser) with ``g++``. The library is
+host file (``<name>.cpp``: the FASTA parser, the TSV row formatter) with
+``g++``. The library is
 built at first use into ``hypergen_tpu_torch/_build/``, under a name keyed
 by a hash of the source and the flags, so an edited source always rebuilds.
 Nothing is built or loaded when a module is imported.
@@ -47,7 +48,7 @@ def _gxx() -> str:
     found = shutil.which("g++")
     if found:
         return found
-    raise RuntimeError("g++ not found: the native FASTA parser needs it")
+    raise RuntimeError("g++ not found: the native host sources need it")
 
 
 def _source(name: str) -> Path:

@@ -33,7 +33,9 @@ Beside the spans, ``count(name, n)`` adds to the process's integer counters
 ``dist_candidates`` (pairs the card's margin test passes, fetched to the
 host; every pair of a tile on the streamed path) and ``dist_kept`` (pairs
 the host chain keeps: the report's rows when it has no top-k cap). Its
-tile products are ``SPANS.dist_fetch.n``.
+tile products are ``SPANS.dist_fetch.n``. The `dist` and `search` TSVs
+count their rows in ``tsv_rows_native`` (formatted by ``csrc/tsv_rows.cpp``)
+and ``tsv_rows_fallback`` (by ``np.char``, where the routine cannot run).
 
 ``StageTimer`` is the JAX package's class: named host-clock spans and the
 same report. ``Sketcher.sketch_files`` uses ``SketchTimer``, a StageTimer
