@@ -1307,7 +1307,7 @@ def timed_cli(torch, argv):
 def database_search(torch, tmp: Path, real, one_proc: dict):
     """Phase 12, the database: `search --top_k 10 -a 80` of 4,096 queries
     against the 131,072-row .hgdb through the CLI (every card) and through
-    sharded_topk_search over [cuda:0] x 4, identical TSVs; `dist -a 95` of
+    topk_search over [cuda:0] x 4, identical TSVs; `dist -a 95` of
     its first 16,384 rows; card-vs-CPU TSV bytes of `search` and `dist` on
     8,192 rows and 512 queries. Returns the database as loaded; the CLI's
     wall times go into one_proc."""
@@ -1316,7 +1316,7 @@ def database_search(torch, tmp: Path, real, one_proc: dict):
     from hypergen_tpu_torch.io.sketch_db import dump_sharded_db, load_sharded_db
     from hypergen_tpu_torch.models.comparator import Comparator
     from hypergen_tpu_torch.parallel.search import (
-        sharded_topk_search, topk_search, write_search_tsv,
+        topk_search, write_search_tsv,
     )
 
     t0 = time.monotonic()
@@ -1363,7 +1363,7 @@ def database_search(torch, tmp: Path, real, one_proc: dict):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(0)
         t0 = time.monotonic()
-        ani, idx, dot = sharded_topk_search(
+        ani, idx, dot = topk_search(
             [card] * 4, db.hvs, db.norms, qs.hvs, qs.norms, db.ksize, TOP_K)
         torch.cuda.synchronize()
         secs = time.monotonic() - t0
@@ -1371,13 +1371,13 @@ def database_search(torch, tmp: Path, real, one_proc: dict):
         write_search_tsv(tmp / "hits_sharded.tsv", db.names, db.norms, qs,
                          ani, idx, dot, 80.0)
         check(hits_cli.read_bytes() == (tmp / "hits_sharded.tsv").read_bytes(),
-              "search TSV: CLI != sharded_topk_search over [cuda:0] x 4")
-        phase(12, f"sharded_topk_search over [cuda:0] x 4: {secs:.3f} s "
+              "search TSV: CLI != topk_search over [cuda:0] x 4")
+        phase(12, f"topk_search over [cuda:0] x 4: {secs:.3f} s "
                   f"(arrays in memory), peak allocated {peak} B; TSV "
                   f"identical to the CLI's")
         if cards > 1:
             t0 = time.monotonic()
-            ani, idx, dot = sharded_topk_search(
+            ani, idx, dot = topk_search(
                 [torch.device(DEVICE, i) for i in range(cards)], db.hvs,
                 db.norms, qs.hvs, qs.norms, db.ksize, TOP_K)
             torch.cuda.synchronize()
@@ -1385,8 +1385,8 @@ def database_search(torch, tmp: Path, real, one_proc: dict):
             write_search_tsv(tmp / "hits_all.tsv", db.names, db.norms, qs,
                              ani, idx, dot, 80.0)
             check(hits_cli.read_bytes() == (tmp / "hits_all.tsv").read_bytes(),
-                  "search TSV: CLI != sharded_topk_search over every card")
-            phase(12, f"sharded_topk_search over all {cards} cards: "
+                  "search TSV: CLI != topk_search over every card")
+            phase(12, f"topk_search over all {cards} cards: "
                       f"{secs:.3f} s; TSV identical")
         hits = read_hits(hits_cli)
         self_names = qs.names[:SELF_QUERIES]

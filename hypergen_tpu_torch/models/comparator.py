@@ -26,7 +26,6 @@ import functools
 import locale
 import logging
 import subprocess
-from collections import OrderedDict
 from typing import Iterator, List, Tuple
 
 import numpy as np
@@ -34,8 +33,8 @@ import torch
 
 from hypergen_tpu_torch.io.sketch_db import ShardedDB
 from hypergen_tpu_torch.ops.ani import (
-    SMALL_SPLIT_MAX, abs_bound, dot_i16_any, dot_threshold_compact,
-    presplit_rows, presplit_rows_small,
+    SmallSplit, dot_i16_any, dot_threshold_compact, presplit_rows,
+    presplit_rows_small, resolve_mode,
 )
 from hypergen_tpu_torch.ops.kernels import build
 from hypergen_tpu_torch.utils.timing import count, span
@@ -120,32 +119,22 @@ class Comparator:
         self.tile_m = tile_m
         self.tile_n = tile_n
         self.mode = self.device.type == "cuda" if mode is None else mode
-        # LRU of id(array) -> (array, bound): holding the array keeps its
-        # id valid, so the cache stays small (streamed callers pass a new
-        # slice per chunk)
-        self._bound_cache: "OrderedDict[int, tuple]" = OrderedDict()
-        self._bound_cache_max = 4
-
-    def _bound(self, a: np.ndarray) -> int:
-        hit = self._bound_cache.get(id(a))
-        if hit is not None and hit[0] is a:
-            self._bound_cache.move_to_end(id(a))
-            return hit[1]
-        b = abs_bound(a)
-        self._bound_cache[id(a)] = (a, b)
-        while len(self._bound_cache) > self._bound_cache_max:
-            self._bound_cache.popitem(last=False)
-        return b
 
     def dot_mode(self, *hv_arrays):
-        """Per-call mode: the 3-product split when every HV value of the
-        operands fits SMALL_SPLIT_MAX, once per DB (the bound scan is
-        memoized per array object)."""
-        if self.mode is True and all(
-            self._bound(a) <= SMALL_SPLIT_MAX for a in hv_arrays
-        ):
-            return "small"
-        return self.mode
+        """The mode for these operands (ops.ani.resolve_mode): the 3-product
+        split when self.mode is True and every HV value fits
+        SMALL_SPLIT_MAX."""
+        return resolve_mode(self.mode, self.device, *hv_arrays)
+
+    def _call_mode(self, tile, r_hv: np.ndarray, q_hv: np.ndarray):
+        """A call's mode against resident row tiles like ``tile``:
+        "small" only when they are SmallSplit (self.mode is True and the
+        reference fit when it was preloaded) and the queries fit; the
+        queries are scanned unless they are the reference's own array
+        (a symmetric call). Other tiles keep self.mode."""
+        if not isinstance(tile, SmallSplit):
+            return self.mode
+        return "small" if q_hv is r_hv else self.dot_mode(q_hv)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -164,7 +153,7 @@ class Comparator:
 
     def _row_tiles(self, hv: np.ndarray) -> List:
         tm = self.tile_m
-        small = self.mode is True and self._bound(hv) <= SMALL_SPLIT_MAX
+        small = self.mode is True and self.dot_mode(hv) == "small"
         out = []
         for mi in range(0, hv.shape[0], tm):
             t = self._upload(hv[mi : mi + tm])
@@ -192,9 +181,9 @@ class Comparator:
         """Yield (row_offset, col_offset, int32 dot tile), row tiles outer.
 
         r_blocks: optional device-resident row tiles from preload_rows."""
-        mode = self.dot_mode(r_hv, q_hv)
         if r_blocks is None:
             r_blocks = self.preload_rows(r_hv)
+        mode = self._call_mode(r_blocks[0] if r_blocks else None, r_hv, q_hv)
         tn = self.tile_n
         for r_dev, mi in zip(r_blocks, range(0, r_hv.shape[0], self.tile_m)):
             for nj in range(0, q_hv.shape[0], tn):
@@ -268,7 +257,8 @@ class Comparator:
             M = ref_db.hvs.shape[0]
             if ref_blocks is None:
                 ref_blocks = self.preload_ref(ref_db)
-            mode = self.dot_mode(ref_db.hvs, query_db.hvs)
+            mode = self._call_mode(ref_blocks[0][0] if ref_blocks else None,
+                                   ref_db.hvs, query_db.hvs)
             out_i: List[np.ndarray] = []
             out_j: List[np.ndarray] = []
             out_a: List[np.ndarray] = []
@@ -314,7 +304,8 @@ class Comparator:
             M = ref_db.hvs.shape[0]
             if ref_blocks is None:
                 ref_blocks = self.preload_rows(ref_db.hvs)
-            mode = self.dot_mode(ref_db.hvs, query_db.hvs)
+            mode = self._call_mode(ref_blocks[0] if ref_blocks else None,
+                                   ref_db.hvs, query_db.hvs)
             out_i: List[np.ndarray] = []
             out_j: List[np.ndarray] = []
             out_a: List[np.ndarray] = []

@@ -4,22 +4,30 @@ Counterpart of ``hypergen_tpu.parallel.search``. The JAX package shards the
 DB over a (db, q) mesh with ``shard_map`` and merges the per-shard
 candidates with ``all_gather``. Here one process walks a list of
 ``torch.device``s (repeats allowed, as ``parallel.seqpar`` takes them), and
-the collective becomes copies to ``devices[0]``:
+the collective becomes copies to ``devices[0]``. There is one layout, for
+any number of devices:
 
-  DB rows padded with zero HVs to a multiple of the device count, one
-    contiguous range of rows per device
+  DB rows padded with zero HVs to Mp = ceil(M / ndev) * ndev
+    -> row tiles of ndev * rp rows over [0, Mp) (rp from the per-device
+       pair budget PAIRS_PER_DEVICE_TILE_LIMIT, at most Mp / ndev, so a
+       DB within the budget is one tile), each split evenly over the
+       devices
     -> on each device: exact dots, the device float32 ANI, a local top-k
        (-inf slots when a shard has fewer than k rows)
-    -> the candidates copied to devices[0], shard-major, and merged
+    -> the candidates copied to devices[0], device-major, and merged after
+       the running candidates of the earlier tiles
+    -> rows at or past M masked to (-inf, 0, 0) once, after the fetch
 
 Ranking follows ``jax.lax.top_k``: ANI descending, and among equal values
-the lower DB row first (``ops.ani.topk_desc``); the padded rows are ranked
-as the JAX package ranks them and then masked, so the winners, the -inf
-slots included, are the JAX package's. In a pod (``parallel.mesh``),
-``multihost_topk_search`` runs that per process over its own rows and
-gathers the processes' candidates with ``torch.distributed.all_gather``.
+the lower DB row first (``ops.ani.topk_desc``). Every merge lists lower
+rows first, and a zero padding row has ANI exactly 0 (every real row has
+ANI >= 0) after every real row, so padding never displaces a real row and
+the winners, the -inf slots included, are the JAX package's. In a pod
+(``parallel.mesh``), ``multihost_topk_search`` runs the same tiles per
+process over its own block of rows and gathers the processes' candidates
+with ``torch.distributed.all_gather``.
 
-Every route times its parts in the spans (``utils.timing.span``)
+The search times its parts in the spans (``utils.timing.span``)
 ``search_mode_scan`` (``resolve_mode``'s host scan of the DB and the
 queries), ``search_upload`` (the rows' and queries' copies to the
 devices), ``search_dot_topk`` (the dots, top-k, pads and merges),
@@ -92,8 +100,8 @@ def _block_candidates(devices, db_hv, db_norm, lo: int, rows: int, q_on,
                       ksize: int, k_top: int, mode):
     """Top-k of rows [lo, lo + rows) of the DB (zero-padded past its end)
     split evenly over ``devices``; the sharded program of the JAX package
-    (``_local_search``). Returns tensors on devices[0] (ani, idx local to
-    the block, dot), each [N, k_top]."""
+    (``_local_search``). Returns tensors on devices[0] (ani, idx into
+    db_hv, dot), each [N, k_top]."""
     rp = rows // len(devices)
     home = devices[0]
     vs, ids, ds = [], [], []
@@ -111,7 +119,7 @@ def _block_candidates(devices, db_hv, db_norm, lo: int, rows: int, q_on,
                 i = torch.nn.functional.pad(i, (0, pad))
                 d = torch.nn.functional.pad(d, (0, pad))
             vs.append(v.to(home))
-            ids.append((i + di * rp).to(home))
+            ids.append((i + (lo + di * rp)).to(home))
             ds.append(d.to(home))
     with span("search_dot_topk"):
         return _merge(vs, ids, ds, k_top)
@@ -126,139 +134,60 @@ def _merge(vs, ids, ds, k_top: int):
     return mv, mi, md
 
 
-def _block_topk(*args):
-    """_block_candidates as numpy arrays."""
-    return _fetch(*_block_candidates(*args))
+def _candidates(devices, db_hv, db_norm, end: int, q_on, ksize: int,
+                k_top: int, mode, tile_rows=None):
+    """Top-k of rows [0, end) of the DB (zero past its end; end a multiple
+    of len(devices)), in row tiles of len(devices) * rp rows, each split
+    evenly over the devices (_block_candidates) and merged on devices[0]
+    after the running candidates. rp is ceil(tile_rows / ndev), by default
+    the rows that keep a device's ANI tile within
+    PAIRS_PER_DEVICE_TILE_LIMIT (at least 256), and at most end / ndev; the
+    last tile stops at end. Returns tensors on devices[0] (ani, idx into
+    db_hv, dot), each [N, k_top]."""
+    ndev, N = len(devices), q_on[devices[0]][0].shape[0]
+    rp = (-(-tile_rows // ndev) if tile_rows else
+          max(256, PAIRS_PER_DEVICE_TILE_LIMIT // max(N, 1)))
+    step = ndev * max(1, min(end // ndev, rp))
+    run = None
+    for lo in range(0, end or 1, step):  # an empty DB gives its -inf slots
+        tile = _block_candidates(devices, db_hv, db_norm, lo,
+                                 min(step, end - lo), q_on, ksize, k_top,
+                                 mode)
+        if run is None:
+            run = tile
+            continue
+        with span("search_dot_topk"):
+            run = _merge(*zip(run, tile), k_top)
+    return run
 
 
-def _mask_padding(ani, idx, dot, M: int, Mp: int):
-    """Padded DB rows (index >= M, only when M < Mp) -> (-inf, 0, 0)."""
-    if Mp != M:
-        bad = idx >= M
-        ani = np.where(bad, -np.inf, ani).astype(np.float32)
-        idx = np.where(bad, 0, idx).astype(np.int32)
-        dot = np.where(bad, 0, dot).astype(np.int32)
+def _mask_padding(ani, idx, dot, M: int):
+    """Padded DB rows (index >= M) -> (-inf, 0, 0), in place."""
+    bad = idx >= M
+    ani[bad], idx[bad], dot[bad] = -np.inf, 0, 0
     return ani, idx, dot
-
-
-def sharded_topk_search(
-    devices: Sequence, db_hv: np.ndarray, db_norm: np.ndarray,
-    q_hv: np.ndarray, q_norm: np.ndarray, ksize: int, k_top: int, mode=None,
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Top-k ANI search of queries against the DB split over ``devices``.
-
-    Pads M to a multiple of len(devices) with zero HVs, masked out of the
-    results. Returns (ani [N, k_top] float32 device ANI, idx [N, k_top]
-    int32 global DB rows, dot [N, k_top] exact int32 dots of the winners,
-    which the TSV feeds through the host float chain).
-    """
-    devs = [torch.device(d) for d in devices]
-    mode = _mode(mode, devs[0], db_hv, q_hv)
-    M, ndb = db_hv.shape[0], len(devs)
-    Mp = -(-M // ndb) * ndb
-    q_on = _on_devices(devs, q_hv, q_norm)
-    ani, idx, dot = _block_topk(devs, db_hv, db_norm, 0, Mp, q_on, ksize,
-                                k_top, mode)
-    return _mask_padding(ani, idx, dot, M, Mp)
-
-
-def local_topk_search_tiled(
-    db_hv: np.ndarray, db_norm: np.ndarray, q_hv: np.ndarray,
-    q_norm: np.ndarray, ksize: int, k_top: int, tile_m: int = 8192,
-    mode=None, device="cuda",
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Top-k on one device over a DB larger than one ANI matrix.
-
-    Streams DB row tiles (the last one zero-padded to tile_m) through a
-    running top-k on the device, the running candidates ahead of each new
-    tile's, so peak memory is O(tile_m x N) instead of O(M x N).
-    """
-    device = torch.device(device)
-    mode = _mode(mode, device, db_hv, q_hv)
-    tile_m = max(tile_m, k_top)  # each tile must give k_top candidates
-    M, N = db_hv.shape[0], q_hv.shape[0]
-    (q, qn), = _on_devices([device], q_hv, q_norm).values()
-    run_v = torch.full((N, k_top), float("-inf"), device=device)
-    run_i = torch.zeros((N, k_top), dtype=torch.int32, device=device)
-    run_d = torch.zeros((N, k_top), dtype=torch.int32, device=device)
-    for mi in range(0, M, tile_m):
-        with span("search_upload"):
-            hv = _padded_rows(db_hv, mi, tile_m, device)
-            norm = _padded_rows(db_norm, mi, tile_m, device)
-        with span("search_dot_topk"):
-            v, i, d = ani_topk(hv, norm, q, qn, ksize, k_top, mode)
-            del hv
-            run_v, mp = topk_desc(torch.cat([run_v, v], dim=1), k_top)
-            run_i = torch.gather(torch.cat([run_i, i + mi], dim=1), 1, mp)
-            run_d = torch.gather(torch.cat([run_d, d], dim=1), 1, mp)
-    return _mask_padding(*_fetch(run_v, run_i, run_d),
-                         M, -(-M // tile_m) * tile_m)
-
-
-def sharded_topk_search_tiled(
-    devices: Sequence, db_hv: np.ndarray, db_norm: np.ndarray,
-    q_hv: np.ndarray, q_norm: np.ndarray, ksize: int, k_top: int,
-    tile_m: int, mode=None,
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Top-k over several devices for a DB too large for one sharded pass.
-
-    Streams DB row tiles of tile_m rows (rounded up to a multiple of the
-    device count, the last zero-padded), each through the sharded top-k,
-    and merges each tile's candidates after the running ones on the host
-    (a stable sort), bounding each device's memory at O(tile_m/ndb x N).
-    Queries cross to each device once; the mode resolves once over the
-    whole DB.
-    """
-    devs = [torch.device(d) for d in devices]
-    mode = _mode(mode, devs[0], db_hv, q_hv)
-    ndb = len(devs)
-    M, N = db_hv.shape[0], q_hv.shape[0]
-    tile_m = -(-max(tile_m, k_top) // ndb) * ndb
-    q_on = _on_devices(devs, q_hv, q_norm)
-    run_v = np.full((N, k_top), -np.inf, dtype=np.float32)
-    run_i = np.zeros((N, k_top), dtype=np.int32)
-    run_d = np.zeros((N, k_top), dtype=np.int32)
-    for mi in range(0, M, tile_m):
-        v, i, d = _mask_padding(
-            *_block_topk(devs, db_hv, db_norm, mi, tile_m, q_on, ksize,
-                         k_top, mode),
-            min(tile_m, M - mi), tile_m,
-        )
-        with span("search_dot_topk"):
-            cv = np.concatenate([run_v, v], axis=1)
-            ci = np.concatenate([run_i, i + mi], axis=1)
-            cd = np.concatenate([run_d, d], axis=1)
-            pos = np.argsort(-cv, axis=1, kind="stable")[:, :k_top]
-            run_v = np.take_along_axis(cv, pos, axis=1)
-            run_i = np.take_along_axis(ci, pos, axis=1).astype(np.int32)
-            run_d = np.take_along_axis(cd, pos, axis=1).astype(np.int32)
-    return run_v, run_i, run_d
 
 
 def topk_search(
     devices: Sequence, db_hv: np.ndarray, db_norm: np.ndarray,
-    q_hv: np.ndarray, q_norm: np.ndarray, ksize: int, k_top: int,
+    q_hv: np.ndarray, q_norm: np.ndarray, ksize: int, k_top: int, mode=None,
+    tile_rows=None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """The `search` route, by pairs per device: one sharded pass while a
-    device's share of the ANI matrix stays within
-    PAIRS_PER_DEVICE_TILE_LIMIT, else row tiles sized from that budget (a
-    running top-k on the device for one device, the sharded tiles for
-    several)."""
-    M, N = db_hv.shape[0], q_hv.shape[0]
-    ndev = len(devices)
-    if -(-M // ndev) * N <= PAIRS_PER_DEVICE_TILE_LIMIT:
-        return sharded_topk_search(devices, db_hv, db_norm, q_hv, q_norm,
-                                   ksize, k_top)
-    if ndev == 1:
-        return local_topk_search_tiled(
-            db_hv, db_norm, q_hv, q_norm, ksize, k_top,
-            tile_m=max(k_top, 256, PAIRS_PER_DEVICE_TILE_LIMIT // max(N, 1)),
-            device=devices[0],
-        )
-    return sharded_topk_search_tiled(
-        devices, db_hv, db_norm, q_hv, q_norm, ksize, k_top,
-        tile_m=max(8192, PAIRS_PER_DEVICE_TILE_LIMIT // max(N, 1) * ndev),
-    )
+    """Top-k ANI search of queries against the DB split over ``devices``
+    (the module docstring's layout). tile_rows: the rows of a tile (None:
+    from PAIRS_PER_DEVICE_TILE_LIMIT).
+
+    Returns (ani [N, k_top] float32 device ANI, idx [N, k_top] int32 DB
+    rows, dot [N, k_top] exact int32 dots of the winners, which the TSV
+    feeds through the host float chain).
+    """
+    devs = [torch.device(d) for d in devices]
+    mode = _mode(mode, devs[0], db_hv, q_hv)
+    M, ndev = db_hv.shape[0], len(devs)
+    q_on = _on_devices(devs, q_hv, q_norm)
+    cand = _candidates(devs, db_hv, db_norm, -(-M // ndev) * ndev, q_on,
+                       ksize, k_top, mode, tile_rows)
+    return _mask_padding(*_fetch(*cand), M)
 
 
 def multihost_topk_search(
@@ -269,20 +198,21 @@ def multihost_topk_search(
 
     db: an .hgdb directory (each process memory-maps only its rows with
     load_db_rows) or a ShardedDB every process has loaded. The global
-    shards are the processes' device lists in rank order: shard
-    g = rank * n_local + i owns rows [g * rp, min((g + 1) * rp, M)) with
-    rp = ceil(M / (nproc * n_local)), so a process's rows are one range,
-    zero-padded to n_local * rp. Each process ranks its shards as
-    sharded_topk_search does and merges them; all_gather brings every
-    process's [N, k] candidates, merged rank-major and masked as the JAX
-    package's multihost_topk_search. Ties keep ``jax.lax.top_k``'s rule
-    (equal ANI: the lower global row first) through both merges: each
-    stage lists the candidates of lower rows first among equal values, so
-    the two-stage top-k picks and orders what one top-k over every shard
-    would. Each process resolves its dot mode from its own rows and the
-    queries; every mode is exact, so processes need not agree. Call after
-    parallel.mesh's init; with one process it is sharded_topk_search.
-    Returns (ani, idx, dot) [N, k_top], the same on every process.
+    shards are the processes' device lists in rank order: process r owns
+    the block of rows [r * block, min((r + 1) * block, M)) with block =
+    n_local * ceil(M / (nproc * n_local)), zero-padded to block rows. Each
+    process ranks its block in topk_search's row tiles, which stop at the
+    block's end, so no padding row takes another process's index;
+    all_gather brings every process's [N, k] candidates, merged rank-major
+    and masked as the JAX package's multihost_topk_search. Ties keep
+    ``jax.lax.top_k``'s rule (equal ANI: the lower global row first)
+    through every merge: each stage lists the candidates of lower rows
+    first among equal values, so the staged top-k picks and orders what
+    one top-k over every row would. Each process resolves its dot mode
+    from its own rows and the queries; every mode is exact, so processes
+    need not agree. Call after parallel.mesh's init; with one process it
+    is topk_search. Returns (ani, idx, dot) [N, k_top], the same on every
+    process.
     """
     from hypergen_tpu_torch.io.sketch_db import ShardedDB, load_db_rows
     from hypergen_tpu_torch.parallel import mesh
@@ -309,8 +239,7 @@ def multihost_topk_search(
              rank, nproc, lo, hi, M)
     mode = _mode(mode, devs[0], hv, q_hv)
     q_on = _on_devices(devs, q_hv, q_norm)
-    v, i, d = _block_candidates(devs, hv, norm, 0, block, q_on, ksize, k_top,
-                                mode)
+    v, i, d = _candidates(devs, hv, norm, block, q_on, ksize, k_top, mode)
     i = i + rank * block
     if nproc > 1:
         with span("search_dot_topk"):
@@ -319,7 +248,7 @@ def multihost_topk_search(
         log.info("pod search: process %d/%d peak allocated %d B on %s",
                  rank, nproc, torch.cuda.max_memory_allocated(devs[0]),
                  devs[0])
-    return _mask_padding(*_fetch(v, i, d), M, nproc * block)
+    return _mask_padding(*_fetch(v, i, d), M)
 
 
 def _exact_ani(ref_norms, query_db, ani: np.ndarray, idx: np.ndarray,

@@ -283,6 +283,62 @@ def test_pair_paths_offsets_and_blocks_match_jax(mode, threshold):
     assert got[0].size > 0
 
 
+
+def test_reference_is_scanned_once_a_dist_call(monkeypatch):
+    """abs_bound runs once over the reference in a symmetric dist call
+    (when it is preloaded; the query is the reference's own array), and
+    not over the reference when its resident blocks are passed in: then
+    only over the queries."""
+    from hypergen_tpu_torch.models import comparator as comp_mod
+
+    scanned = []
+    orig = torch_ani.abs_bound
+    monkeypatch.setattr(torch_ani, "abs_bound",
+                        lambda a: scanned.append(a) or orig(a))
+    ref, qry = _db(1, 11), _db(2, 7, names="q")
+    tc = Comparator(ksize=21, device="cpu", tile_m=4, tile_n=3, mode=True)
+    got = tc.ani_pairs_thresholded(ref, ref, True, 85.0)
+    assert len(scanned) == 1 and scanned[0] is ref.hvs
+    blocks = tc.preload_ref(ref)
+    assert isinstance(blocks[0][0], torch_ani.SmallSplit)
+    scanned.clear()
+    tc.ani_pairs_thresholded(ref, qry, False, 85.0, ref_blocks=blocks)
+    tc.ani_pairs_streamed(ref, qry, False, 0.0,
+                          ref_blocks=tc.preload_rows(ref.hvs))
+    assert [a is qry.hvs for a in scanned] == [True, False, True]
+    assert scanned[1] is ref.hvs  # preload_rows, not the call
+    want = comp_mod.Comparator(ksize=21, device="cpu", tile_m=4, tile_n=3,
+                               mode=False).ani_pairs_thresholded(
+                                   ref, ref, True, 85.0)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("over", [6176, -32768, 32767])
+def test_over_bound_query_against_small_tiles_is_the_direct_dot(over):
+    """A query past SMALL_SPLIT_MAX against SmallSplit resident tiles (a
+    reference that fits) gives the direct dot's bytes on every pair path."""
+    ref, qry = _db(1, 11), _db(2, 7, names="q")
+    qry.hvs[3, 5] = over
+    qry.norms = (qry.hvs.astype(np.int64) ** 2).sum(-1).astype(np.int32)
+    tc = Comparator(ksize=21, device="cpu", tile_m=4, tile_n=3, mode=True)
+    direct = Comparator(ksize=21, device="cpu", tile_m=4, tile_n=3,
+                        mode=False)
+    blocks = tc.preload_rows(ref.hvs)
+    assert isinstance(blocks[0], torch_ani.SmallSplit)
+    assert tc._call_mode(blocks[0], ref.hvs, qry.hvs) is True
+    want = (ref.hvs.astype(np.int64) @ qry.hvs.astype(np.int64).T)
+    want = ((want + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
+    for mi, nj, tile in tc.dot_tiles(ref.hvs, qry.hvs, r_blocks=blocks):
+        np.testing.assert_array_equal(
+            tile, want[mi : mi + tile.shape[0], nj : nj + tile.shape[1]])
+    for name, th in (("ani_pairs_thresholded", 85.0),
+                     ("ani_pairs_streamed", 0.0)):
+        got = getattr(tc, name)(ref, qry, False, th)
+        for a, b in zip(got, getattr(direct, name)(ref, qry, False, th)):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_splits_match_jax_on_every_int16():
     """Both splits give the JAX package's int8 planes for all 65,536 int16
     values (the 3-product split also past its bound, where both wrap)."""

@@ -302,21 +302,19 @@ def test_cuda_search_and_dist_cli_match_cpu(cuda, tmp_path):
 
 @pytest.mark.cuda
 def test_cuda_sharded_search_matches_tiled(cuda):
-    """sharded_topk_search over [card] x 3 equals the running top-k over
-    row tiles on the card; the sharded search on the CPU picks the same
-    winners (its float32 ANIs may differ from the card's in the last bit:
-    within 1e-4)."""
-    from hypergen_tpu_torch.parallel.search import (
-        local_topk_search_tiled, sharded_topk_search,
-    )
+    """topk_search over [card] x 3 in one pass equals it over row tiles of
+    64 on the card; the search on the CPU picks the same winners (its
+    float32 ANIs may differ from the card's in the last bit: within
+    1e-4)."""
+    from hypergen_tpu_torch.parallel.search import topk_search
 
     hv, norm = _hv_rows(3, 200, 256)
     qhv, qnorm = _hv_rows(4, 24, 256, dups=False)
     qhv[0], qnorm[0] = hv[1], norm[1]
     args = (hv, norm, qhv, qnorm, 21, 7)
-    a = sharded_topk_search([cuda] * 3, *args)
-    b = local_topk_search_tiled(*args, tile_m=64, device=cuda)
-    c = sharded_topk_search(["cpu"] * 3, *args, mode=True)
+    a = topk_search([cuda] * 3, *args)
+    b = topk_search([cuda], *args, tile_rows=64)
+    c = topk_search(["cpu"] * 3, *args, mode=True)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
     for x, z in zip(a[1:], c[1:]):
@@ -348,7 +346,7 @@ finally:
 def test_cuda_pod_search_matches_sharded(cuda, tmp_path):
     """Two processes, each on its own card over NCCL (one card: both on
     cuda:0 over gloo), run multihost_topk_search; the arrays equal the
-    one-process sharded_topk_search over the same cards."""
+    one-process topk_search over the same cards."""
     import os
     import socket
     import subprocess
@@ -356,7 +354,7 @@ def test_cuda_pod_search_matches_sharded(cuda, tmp_path):
     from pathlib import Path
 
     from hypergen_tpu_torch.io.sketch_db import ShardedDB, dump_sharded_db
-    from hypergen_tpu_torch.parallel.search import sharded_topk_search
+    from hypergen_tpu_torch.parallel.search import topk_search
 
     hv, norm = _hv_rows(5, 301, 256)
     qhv, qnorm = _hv_rows(6, 24, 256, dups=False)
@@ -396,7 +394,7 @@ def test_cuda_pod_search_matches_sharded(cuda, tmp_path):
     backend = "nccl" if cards >= 2 else "gloo"
     assert all(f"backend {backend}" in out for out in outs)
     devs = [torch.device("cuda", i % cards) for i in range(2)]
-    want = sharded_topk_search(devs, hv, norm, qhv, qnorm, 21, 7)
+    want = topk_search(devs, hv, norm, qhv, qnorm, 21, 7)
     for r in range(2):
         got = np.load(tmp_path / f"out{r}.npz")
         for name, w in zip(("ani", "idx", "dot"), want):

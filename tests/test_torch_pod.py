@@ -290,15 +290,14 @@ def test_pod_search_tsv_equals_jax_cli(pod, kind):
 
 @pytest.mark.parametrize("case", range(len(SEARCH_CASES)))
 def test_multihost_topk_search_equals_sharded(pod, case):
-    """2 processes x ["cpu"] * 4 against the port's sharded_topk_search over
+    """2 processes x ["cpu"] * 4 against the port's topk_search over
     ["cpu"] * 8 (equal arrays) and the JAX package's over 8 devices."""
     seed, dup, k, mode = SEARCH_CASES[case]
     root = pod["root"]
     got = [np.load(root / f"mh{case}_{r}.npz") for r in range(2)]
     got = [tuple(z[n] for n in ("ani", "idx", "dot")) for z in got]
     hv, norms, q, qn = _search_db(seed, dup)
-    one = tsearch.sharded_topk_search(["cpu"] * 8, hv, norms, q, qn, 21, k,
-                                      mode)
+    one = tsearch.topk_search(["cpu"] * 8, hv, norms, q, qn, 21, k, mode)
     for a, b, c in zip(got[0], got[1], one):
         np.testing.assert_array_equal(a, b)  # the same on every process
         np.testing.assert_array_equal(a, c)
@@ -312,6 +311,38 @@ def test_multihost_topk_search_equals_sharded(pod, case):
     if dup:  # five copies at 100: the lowest rows make the cut, in order
         np.testing.assert_array_equal(idx[0, : min(k, 5)],
                                       [6, 7, 27, 28, 50][: min(k, 5)])
+
+
+@pytest.mark.parametrize("n_local", [1, 2])
+def test_multihost_topk_search_one_process_tiles(tmp_path, monkeypatch,
+                                                 n_local):
+    """One process (no group): with the pair budget shrunk, its block of
+    1,100 rows runs in row tiles of 256 rows a device, and the arrays equal
+    the untiled search's, from a ShardedDB and from an .hgdb."""
+    rng = np.random.default_rng(7)
+    hv = rng.integers(-30, 30, size=(1100, 64)).astype(np.int16)
+    hv[[300, 700, 1099]] = hv[5]  # ties at 100 across the tiles
+    norms = np.sum(hv.astype(np.int64) ** 2, axis=1).astype(np.int32)
+    q, qn = hv[[5, 0, 600]].copy(), norms[[5, 0, 600]].copy()
+    db = tdb.ShardedDB(ksize=21, scaled=30, canonical=True, seed=123,
+                       hv_d=64, names=[f"r{i}" for i in range(1100)],
+                       hvs=hv, norms=norms)
+    tdb.dump_sharded_db(db, tmp_path / "r.hgdb", n_shards=3)
+    devs = ["cpu"] * n_local
+    want = tsearch.topk_search(devs, hv, norms, q, qn, 21, 4)
+    tiles = []
+    orig = tsearch._block_candidates
+    monkeypatch.setattr(tsearch, "_block_candidates",
+                        lambda *a: tiles.append(a[3:5]) or orig(*a))
+    monkeypatch.setattr(tsearch, "PAIRS_PER_DEVICE_TILE_LIMIT", 1)
+    for ref in (db, tmp_path / "r.hgdb"):
+        tiles.clear()
+        got = tsearch.multihost_topk_search(ref, q, qn, 21, 4, devs)
+        assert len(tiles) == (5 if n_local == 1 else 3)
+        assert sum(rows for _, rows in tiles) == 1100
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(want[1][0], [5, 300, 700, 1099])
 
 
 def test_pod_logs_row_ranges(pod):

@@ -70,7 +70,7 @@ MODES = [None, True, "small"]
 def test_sharded_topk_matches_jax(data, n, k, mode):
     """One sharded pass over n shards; k up to past the shard size (5 > 3
     rows a shard at n=4) and past M (12 > 10)."""
-    got = torch_search.sharded_topk_search(["cpu"] * n, *data, 21, k, mode)
+    got = torch_search.topk_search(["cpu"] * n, *data, 21, k, mode)
     want = jax_search.sharded_topk_search(_mesh(n), *data, 21, k,
                                           use_mxu=mode)
     _assert_same(got, want)
@@ -81,10 +81,10 @@ def test_sharded_topk_matches_jax(data, n, k, mode):
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("tile_m,k", [(4, 3), (3, 5), (8, 12), (16, 2)])
 def test_local_tiled_topk_matches_jax(data, tile_m, k, mode):
-    """The running top-k over row tiles (the last one padded) on one
-    device; ties across tiles keep the earlier tile's row."""
-    got = torch_search.local_topk_search_tiled(
-        *data, 21, k, tile_m=tile_m, mode=mode, device="cpu")
+    """Row tiles on one device against the JAX package's running top-k
+    over tiles; ties across tiles keep the earlier tile's row."""
+    got = torch_search.topk_search(["cpu"], *data, 21, k, mode=mode,
+                                   tile_rows=tile_m)
     want = jax_search.local_topk_search_tiled(
         *data, 21, k, tile_m=tile_m, use_mxu=mode)
     _assert_same(got, want)
@@ -93,8 +93,8 @@ def test_local_tiled_topk_matches_jax(data, tile_m, k, mode):
 @pytest.mark.parametrize("n", [2, 3, 4])
 @pytest.mark.parametrize("tile_m,k", [(4, 3), (6, 5), (8, 12)])
 def test_sharded_tiled_topk_matches_jax(data, n, tile_m, k):
-    got = torch_search.sharded_topk_search_tiled(
-        ["cpu"] * n, *data, 21, k, tile_m=tile_m)
+    got = torch_search.topk_search(["cpu"] * n, *data, 21, k,
+                                   tile_rows=tile_m)
     want = jax_search.sharded_topk_search_tiled(
         _mesh(n), *data, 21, k, tile_m=tile_m)
     _assert_same(got, want)
@@ -102,13 +102,30 @@ def test_sharded_tiled_topk_matches_jax(data, n, tile_m, k):
 
 @pytest.mark.parametrize("n", [1, 3])
 def test_routes_give_one_answer(data, n, monkeypatch):
-    """topk_search's tiled routes (a small pair budget) give the winners
-    of the one-pass route, on one device and on several."""
+    """Row tiles (4 of them) give the winners of one pass, on one device
+    and on several; the last tile stops at the padded end."""
     one = torch_search.topk_search(["cpu"] * n, *data, 21, 4)
-    monkeypatch.setattr(torch_search, "PAIRS_PER_DEVICE_TILE_LIMIT", 8)
-    tiled = torch_search.topk_search(["cpu"] * n, *data, 21, 4)
+    tiles = []  # (lo, rows) of each row tile
+    orig = torch_search._block_candidates
+    monkeypatch.setattr(torch_search, "_block_candidates",
+                        lambda *a: tiles.append(a[3:5]) or orig(*a))
+    tiled = torch_search.topk_search(["cpu"] * n, *data, 21, 4, tile_rows=3)
+    assert len(tiles) == 4
+    assert sum(rows for _, rows in tiles) == -(-10 // n) * n
     for a, b in zip(one, tiled):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("tile_rows", [1, 2, 3, 5, None])
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+@pytest.mark.parametrize("k", [1, 3, 10, 12])
+def test_tiles_devices_and_k_match_jax(data, tile_rows, n, k):
+    """Every tiling over every device count, k up to M and past it,
+    against the JAX package's one sharded pass."""
+    got = torch_search.topk_search(["cpu"] * n, *data, 21, k,
+                                   tile_rows=tile_rows)
+    want = jax_search.sharded_topk_search(_mesh(n), *data, 21, k)
+    _assert_same(got, want)
 
 
 def test_search_reports_match_jax(tmp_path):
@@ -138,8 +155,7 @@ def test_write_search_tsv_is_the_host_chain(data, tmp_path):
     from hypergen_tpu_torch.io.sketch_db import ShardedDB
 
     db_hv, db_norm, q_hv, q_norm = data
-    ani, idx, dot = torch_search.sharded_topk_search(["cpu"] * 4, *data,
-                                                     21, 12)
+    ani, idx, dot = torch_search.topk_search(["cpu"] * 4, *data, 21, 12)
     q = ShardedDB(ksize=21, scaled=1500, canonical=True, seed=123, hv_d=96,
                   names=[f"q{i}" for i in range(5)], hvs=q_hv, norms=q_norm)
     n = torch_search.write_search_tsv(

@@ -246,12 +246,12 @@ def test_hgdb_write_and_load_ranges(tmp_path):
 @pytest.mark.parametrize("devices,limit", [
     (["cpu"], None),  # one pass
     (["cpu", "cpu"], None),  # sharded
-    (["cpu"], 64 * 24),  # tiled
-    (["cpu", "cpu"], 64 * 24),  # sharded tiles
+    (["cpu"], 64 * 24),  # tiles of 256 rows
+    (["cpu", "cpu"], 64 * 24),  # tiles of 2 x 256 rows
 ], ids=["one_pass", "sharded", "tiled", "sharded_tiled"])
 def test_search_ranges_on_every_route(tmp_path, monkeypatch, devices, limit):
     rng = np.random.default_rng(43)
-    ref, q = _db(rng, 300), _db(rng, 24, names="q")
+    ref, q = _db(rng, 600), _db(rng, 24, names="q")
     q.hvs[:8] = ref.hvs[:8]
     q.norms[:8] = ref.norms[:8]
     tdb.dump_sharded_db(ref, tmp_path / "r.hgdb", n_shards=3)
