@@ -11,12 +11,12 @@ jax at its top.
 `dist`'s pair path is timed in the spans and counted in the counters of
 ``utils.timing``: ``dist_compare`` around a whole ``ani_pairs_thresholded``
 or ``ani_pairs_streamed`` call, ``dist_preload`` around the row tiles'
-upload and split, ``dist_fetch`` and ``dist_host_chain`` in each tile,
-``dist_finish`` and ``dist_report``; the counters ``dist_candidates``
-and ``dist_kept``. The TSV rows of `dist` and `search` are formatted by
-the native routine ``csrc/tsv_rows.cpp`` (rows counted in
-``tsv_rows_native``) or, where it cannot run, by ``np.char``
-(``tsv_rows_fallback``).
+upload, the read of their bound and their split, ``dist_fetch`` and
+``dist_host_chain`` in each tile, ``dist_finish`` and ``dist_report``;
+the counters ``dist_candidates`` and ``dist_kept``. The TSV rows of
+`dist` and `search` are formatted by the native routine
+``csrc/tsv_rows.cpp`` (rows counted in ``tsv_rows_native``) or, where it
+cannot run, by ``np.char`` (``tsv_rows_fallback``).
 """
 
 from __future__ import annotations
@@ -33,8 +33,8 @@ import torch
 
 from hypergen_tpu_torch.io.sketch_db import ShardedDB
 from hypergen_tpu_torch.ops.ani import (
-    SmallSplit, dot_i16_any, dot_threshold_compact, presplit_rows,
-    presplit_rows_small, resolve_mode,
+    SmallSplit, bound_on_device, dot_i16_any, dot_threshold_compact,
+    presplit_rows, presplit_rows_small, resolve_mode,
 )
 from hypergen_tpu_torch.ops.kernels import build
 from hypergen_tpu_torch.utils.timing import count, span
@@ -105,8 +105,9 @@ class Comparator:
     """Tiled exact int32 dot matrices between sketch DBs on one device.
 
     mode: the dot mode of ``ops.ani`` (None: the int8 split on a CUDA
-    device, upgraded to "small" per call when the values fit; the direct
-    dot on the CPU)."""
+    device, upgraded to "small" where the resident rows and a query tile
+    fit, as read from their bytes on the device; the direct dot on the
+    CPU)."""
 
     # dense all-pairs is an exhaustive-table utility (tests, small sets);
     # above this it would allocate multi-GB host float matrices
@@ -126,15 +127,16 @@ class Comparator:
         SMALL_SPLIT_MAX."""
         return resolve_mode(self.mode, self.device, *hv_arrays)
 
-    def _call_mode(self, tile, r_hv: np.ndarray, q_hv: np.ndarray):
-        """A call's mode against resident row tiles like ``tile``:
-        "small" only when they are SmallSplit (self.mode is True and the
-        reference fit when it was preloaded) and the queries fit; the
-        queries are scanned unless they are the reference's own array
-        (a symmetric call). Other tiles keep self.mode."""
+    def _query_mode(self, tile, q: torch.Tensor, own: bool):
+        """The mode of products of resident row tiles like ``tile`` with
+        the query tile q on the device: "small" only when they are
+        SmallSplit (self.mode is True and the reference fit when it was
+        preloaded) and q fits, read from q's bytes on the device unless q
+        holds the reference's own rows (own: a symmetric call). Other
+        tiles keep self.mode."""
         if not isinstance(tile, SmallSplit):
             return self.mode
-        return "small" if q_hv is r_hv else self.dot_mode(q_hv)
+        return "small" if own else self.dot_mode(q)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -152,11 +154,21 @@ class Comparator:
             return self._row_tiles(hv)
 
     def _row_tiles(self, hv: np.ndarray) -> List:
+        """The tiles uploaded unsplit, each one's bound reduced on the
+        device as it lands, and the largest read with one host read after
+        the last upload (self.mode True); then every tile split in the one
+        mode, each int16 tile freed as its planes are made."""
         tm = self.tile_m
-        small = self.mode is True and self.dot_mode(hv) == "small"
-        out = []
+        tiles, bounds = [], []
         for mi in range(0, hv.shape[0], tm):
-            t = self._upload(hv[mi : mi + tm])
+            tiles.append(self._upload(hv[mi : mi + tm]))
+            if self.mode is True:
+                bounds.append(bound_on_device(tiles[-1]))
+        # the bounds are >= 0, so their own bound is the largest
+        small = bool(bounds) and self.dot_mode(torch.stack(bounds)) == "small"
+        out = []
+        while tiles:
+            t = tiles.pop(0)
             if small:
                 t = presplit_rows_small(t)
             elif self.mode:
@@ -183,11 +195,11 @@ class Comparator:
         r_blocks: optional device-resident row tiles from preload_rows."""
         if r_blocks is None:
             r_blocks = self.preload_rows(r_hv)
-        mode = self._call_mode(r_blocks[0] if r_blocks else None, r_hv, q_hv)
         tn = self.tile_n
         for r_dev, mi in zip(r_blocks, range(0, r_hv.shape[0], self.tile_m)):
             for nj in range(0, q_hv.shape[0], tn):
                 q = self._upload(q_hv[nj : nj + tn])
+                mode = self._query_mode(r_dev, q, q_hv is r_hv)
                 yield mi, nj, dot_i16_any(r_dev, q, mode).cpu().numpy()
 
     def ani_pairs(
@@ -222,19 +234,24 @@ class Comparator:
             ii, jj = ii.ravel(), jj.ravel()
         return ii.astype(np.int64), jj.astype(np.int64), ani_full[ii, jj]
 
-    def _query_tiles(self, query_db: ShardedDB, M: int, symmetric: bool,
-                     ref_offset: int, query_offset: int):
-        """Yield (nj, query tile on the device, [(bi, mi), ...]): query
+    def _query_tiles(self, ref_db: ShardedDB, query_db: ShardedDB,
+                     tile, symmetric: bool, ref_offset: int,
+                     query_offset: int):
+        """Yield (nj, query tile on the device, its mode against resident
+        row tiles like ``tile`` (_query_mode), [(bi, mi), ...]): query
         tiles outer, so each crosses to the device once, and the row tiles
         that hold an i < j pair (global indices) when symmetric."""
         tm, tn = self.tile_m, self.tile_n
+        own = query_db.hvs is ref_db.hvs
         for nj in range(0, query_db.hvs.shape[0], tn):
             rows = [
-                (bi, mi) for bi, mi in enumerate(range(0, M, tm))
+                (bi, mi) for bi, mi in enumerate(range(0, ref_db.hvs.shape[0],
+                                                       tm))
                 if not (symmetric and _tile_below_diagonal(
                     mi + ref_offset, nj + query_offset, tn))
             ]
-            yield nj, self._upload(query_db.hvs[nj : nj + tn]), rows
+            q = self._upload(query_db.hvs[nj : nj + tn])
+            yield nj, q, self._query_mode(tile, q, own), rows
 
     def ani_pairs_thresholded(
         self, ref_db: ShardedDB, query_db: ShardedDB, symmetric: bool,
@@ -257,13 +274,12 @@ class Comparator:
             M = ref_db.hvs.shape[0]
             if ref_blocks is None:
                 ref_blocks = self.preload_ref(ref_db)
-            mode = self._call_mode(ref_blocks[0][0] if ref_blocks else None,
-                                   ref_db.hvs, query_db.hvs)
             out_i: List[np.ndarray] = []
             out_j: List[np.ndarray] = []
             out_a: List[np.ndarray] = []
-            for nj, q, rows in self._query_tiles(query_db, M, symmetric,
-                                                 ref_offset, query_offset):
+            for nj, q, mode, rows in self._query_tiles(
+                    ref_db, query_db, ref_blocks[0][0] if ref_blocks else None,
+                    symmetric, ref_offset, query_offset):
                 n = q.shape[0]
                 nq = self._upload(query_db.norms[nj : nj + n])
                 for bi, mi in rows:
@@ -304,13 +320,12 @@ class Comparator:
             M = ref_db.hvs.shape[0]
             if ref_blocks is None:
                 ref_blocks = self.preload_rows(ref_db.hvs)
-            mode = self._call_mode(ref_blocks[0] if ref_blocks else None,
-                                   ref_db.hvs, query_db.hvs)
             out_i: List[np.ndarray] = []
             out_j: List[np.ndarray] = []
             out_a: List[np.ndarray] = []
-            for nj, q, rows in self._query_tiles(query_db, M, symmetric,
-                                                 ref_offset, query_offset):
+            for nj, q, mode, rows in self._query_tiles(
+                    ref_db, query_db, ref_blocks[0] if ref_blocks else None,
+                    symmetric, ref_offset, query_offset):
                 for bi, mi in rows:
                     tile = dot_i16_any(ref_blocks[bi], q, mode)
                     with span("dist_fetch"):

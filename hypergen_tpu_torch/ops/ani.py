@@ -27,7 +27,11 @@ int32 arithmetic does, so every mode gives the same int32 bits.
 
 ``mode=None`` resolves as the JAX package's ``_resolve_mxu``: on a CUDA
 device ``"small"`` when every value of both operands fits, else ``True``;
-on the CPU ``False``.
+on the CPU ``False``. The bound is read from the operands where they lie:
+a tensor on the card is reduced there (``bound_on_device``, one fused
+min/max pass) and read with one host read. Every product counts its mode
+in ``utils.timing.COUNTERS``: ``dot_tiles_small`` (3 products) and
+``dot_tiles_split4`` (4); the direct dot counts nothing.
 
 The device float32 ANI map only ranks and filters pairs (with a margin);
 every printed value comes from the host float32 chain in
@@ -38,10 +42,10 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
-import numpy as np
 import torch
 
 from hypergen_tpu_torch.ops.u64 import wrap_i32
+from hypergen_tpu_torch.utils.timing import count
 
 # |values| up to this bound admit the 3-product split: l = ((v+32) & 63) - 32
 # in [-32, 31] and h = (v+32) >> 6 in [-96, 96], so h, l and h + l all fit
@@ -59,18 +63,27 @@ class SmallSplit(NamedTuple):
     hl: torch.Tensor
 
 
-def abs_bound(a) -> int:
-    """max |value| of an int array or tensor by min/max reductions (no
-    temporaries; Python ints sidestep the int16 -32768 negation wrap)."""
-    if isinstance(a, torch.Tensor):
-        return max(int(a.max()), -int(a.min())) if a.numel() else 0
-    a = np.asarray(a)
-    return max(int(a.max()), -int(a.min())) if a.size else 0
+def bound_on_device(t: torch.Tensor) -> torch.Tensor:
+    """max |value| of the int tensor t as an int32 0-d tensor on t's
+    device: one fused min/max pass (``torch.aminmax``) and no host read;
+    int32 sidesteps the int16 -32768 negation wrap. 0 for an empty t."""
+    if not t.numel():
+        return t.new_zeros((), dtype=torch.int32)
+    lo, hi = torch.aminmax(t)
+    return torch.maximum(hi.to(torch.int32), -lo.to(torch.int32))
+
+
+def abs_bound(t: torch.Tensor) -> int:
+    """max |value| of an int tensor, reduced on its device and read with
+    one host read (bound_on_device)."""
+    return int(bound_on_device(t))
 
 
 def resolve_mode(mode, device, *hv_arrays):
     """None -> True on a CUDA device, False on the CPU; True -> "small"
-    when every value of every operand fits SMALL_SPLIT_MAX."""
+    when every value of every operand fits SMALL_SPLIT_MAX (abs_bound: a
+    tensor is reduced where it lies). Any other mode is returned as it
+    is, with no scan."""
     if mode is None:
         mode = torch.device(device).type == "cuda"
     if mode is True and all(
@@ -178,8 +191,10 @@ def dot_i16_exact(r: torch.Tensor, q: torch.Tensor, mode=None) -> torch.Tensor:
     docstring; None resolves by r's device and the values)."""
     mode = resolve_mode(mode, r.device, r, q) if mode is None else mode
     if mode == "small":
+        count("dot_tiles_small")
         return dot_i16_presplit_small(presplit_rows_small(r), q)
     if mode:
+        count("dot_tiles_split4")
         return dot_i16_presplit(*presplit_rows(r), q)
     d = torch.matmul(r.to(torch.float64), q.to(torch.float64).T)
     return wrap_i32(d.to(torch.int64))
@@ -195,10 +210,12 @@ def dot_i16_any(r, q: torch.Tensor, mode=True) -> torch.Tensor:
     resident layout."""
     if isinstance(r, SmallSplit):
         if mode == "small":
+            count("dot_tiles_small")
             return dot_i16_presplit_small(r, q)
         x = (64 * r.h.to(torch.int32) + r.l.to(torch.int32)).to(torch.int16)
         return dot_i16_exact(x, q, mode)
     if isinstance(r, tuple):
+        count("dot_tiles_split4")
         return dot_i16_presplit(*r, q)
     return dot_i16_exact(r, q, mode)
 

@@ -27,13 +27,19 @@ the winners, the -inf slots included, are the JAX package's. In a pod
 process over its own block of rows and gathers the processes' candidates
 with ``torch.distributed.all_gather``.
 
-The search times its parts in the spans (``utils.timing.span``)
-``search_mode_scan`` (``resolve_mode``'s host scan of the DB and the
-queries), ``search_upload`` (the rows' and queries' copies to the
-devices), ``search_dot_topk`` (the dots, top-k, pads and merges),
-``search_fetch`` (the copy back, which waits for the devices) and, in
-``run_search_cli``, ``search_host_chain`` (the host float chain and the
-TSV).
+The dot mode is decided on the devices from the bytes already uploaded
+(``ops.ani.resolve_mode``): the queries once a call, on devices[0], then,
+where the mode is True (or None on a card) and the queries fit
+SMALL_SPLIT_MAX, each tile's rows on their device, so one tile may take
+the 3-product split and the next the 4-way one; every mode gives the same
+int32 dots. The search times its parts in the spans
+(``utils.timing.span``) ``search_mode_scan`` (the mode's decision: once
+for the queries and once a tile on each device, each a reduction on the
+device and one host read), ``search_upload`` (the rows' and queries'
+copies to the devices), ``search_dot_topk`` (the dots, top-k, pads and
+merges), ``search_fetch`` (the copy back, which waits for the devices)
+and, in ``run_search_cli``, ``search_host_chain`` (the host float chain
+and the TSV).
 """
 
 from __future__ import annotations
@@ -84,10 +90,21 @@ def _on_devices(devices, *arrays):
                          for a in arrays) for d in set(devices)}
 
 
-def _mode(mode, device, db_hv, q_hv):
-    """resolve_mode in the span search_mode_scan."""
+def _query_mode(mode, devices, q_on):
+    """(the call's mode, whether each DB tile is still to be reduced):
+    resolve_mode over the queries on devices[0], in the span
+    search_mode_scan. The tiles are reduced only where the mode was True
+    (or None on a card) and the queries fit; an explicit mode is kept."""
     with span("search_mode_scan"):
-        return resolve_mode(mode, device, db_hv, q_hv)
+        got = resolve_mode(mode, devices[0], q_on[devices[0]][0])
+    return got, got == "small" and mode != "small"
+
+
+def _tile_mode(mode, scan: bool, hv: torch.Tensor):
+    """A tile's mode from its uploaded rows (_query_mode's scan), in the
+    span search_mode_scan."""
+    with span("search_mode_scan"):
+        return resolve_mode(True, hv.device, hv) if scan else mode
 
 
 def _fetch(*tensors) -> Tuple[np.ndarray, ...]:
@@ -97,11 +114,12 @@ def _fetch(*tensors) -> Tuple[np.ndarray, ...]:
 
 
 def _block_candidates(devices, db_hv, db_norm, lo: int, rows: int, q_on,
-                      ksize: int, k_top: int, mode):
+                      ksize: int, k_top: int, mode, scan: bool):
     """Top-k of rows [lo, lo + rows) of the DB (zero-padded past its end)
     split evenly over ``devices``; the sharded program of the JAX package
-    (``_local_search``). Returns tensors on devices[0] (ani, idx into
-    db_hv, dot), each [N, k_top]."""
+    (``_local_search``), each device's part in its own mode (_tile_mode).
+    Returns tensors on devices[0] (ani, idx into db_hv, dot), each [N,
+    k_top]."""
     rp = rows // len(devices)
     home = devices[0]
     vs, ids, ds = [], [], []
@@ -110,8 +128,9 @@ def _block_candidates(devices, db_hv, db_norm, lo: int, rows: int, q_on,
         with span("search_upload"):
             hv = _padded_rows(db_hv, lo + di * rp, rp, dev)
             norm = _padded_rows(db_norm, lo + di * rp, rp, dev)
+        tmode = _tile_mode(mode, scan, hv)
         with span("search_dot_topk"):
-            v, i, d = ani_topk(hv, norm, q, qn, ksize, min(k_top, rp), mode)
+            v, i, d = ani_topk(hv, norm, q, qn, ksize, min(k_top, rp), tmode)
             del hv
             pad = k_top - v.shape[1]
             if pad:  # shard smaller than k: -inf slots, local index 0
@@ -135,15 +154,15 @@ def _merge(vs, ids, ds, k_top: int):
 
 
 def _candidates(devices, db_hv, db_norm, end: int, q_on, ksize: int,
-                k_top: int, mode, tile_rows=None):
+                k_top: int, mode, scan: bool, tile_rows=None):
     """Top-k of rows [0, end) of the DB (zero past its end; end a multiple
     of len(devices)), in row tiles of len(devices) * rp rows, each split
     evenly over the devices (_block_candidates) and merged on devices[0]
     after the running candidates. rp is ceil(tile_rows / ndev), by default
     the rows that keep a device's ANI tile within
     PAIRS_PER_DEVICE_TILE_LIMIT (at least 256), and at most end / ndev; the
-    last tile stops at end. Returns tensors on devices[0] (ani, idx into
-    db_hv, dot), each [N, k_top]."""
+    last tile stops at end. mode, scan: from _query_mode. Returns tensors
+    on devices[0] (ani, idx into db_hv, dot), each [N, k_top]."""
     ndev, N = len(devices), q_on[devices[0]][0].shape[0]
     rp = (-(-tile_rows // ndev) if tile_rows else
           max(256, PAIRS_PER_DEVICE_TILE_LIMIT // max(N, 1)))
@@ -152,7 +171,7 @@ def _candidates(devices, db_hv, db_norm, end: int, q_on, ksize: int,
     for lo in range(0, end or 1, step):  # an empty DB gives its -inf slots
         tile = _block_candidates(devices, db_hv, db_norm, lo,
                                  min(step, end - lo), q_on, ksize, k_top,
-                                 mode)
+                                 mode, scan)
         if run is None:
             run = tile
             continue
@@ -182,11 +201,11 @@ def topk_search(
     feeds through the host float chain).
     """
     devs = [torch.device(d) for d in devices]
-    mode = _mode(mode, devs[0], db_hv, q_hv)
     M, ndev = db_hv.shape[0], len(devs)
     q_on = _on_devices(devs, q_hv, q_norm)
     cand = _candidates(devs, db_hv, db_norm, -(-M // ndev) * ndev, q_on,
-                       ksize, k_top, mode, tile_rows)
+                       ksize, k_top, *_query_mode(mode, devs, q_on),
+                       tile_rows)
     return _mask_padding(*_fetch(*cand), M)
 
 
@@ -208,11 +227,11 @@ def multihost_topk_search(
     ``jax.lax.top_k``'s rule (equal ANI: the lower global row first)
     through every merge: each stage lists the candidates of lower rows
     first among equal values, so the staged top-k picks and orders what
-    one top-k over every row would. Each process resolves its dot mode
-    from its own rows and the queries; every mode is exact, so processes
-    need not agree. Call after parallel.mesh's init; with one process it
-    is topk_search. Returns (ani, idx, dot) [N, k_top], the same on every
-    process.
+    one top-k over every row would. Each process decides its tiles' dot
+    modes from its own rows and the queries on its cards; every mode is
+    exact, so tiles and processes need not agree. Call after
+    parallel.mesh's init; with one process it is topk_search. Returns
+    (ani, idx, dot) [N, k_top], the same on every process.
     """
     from hypergen_tpu_torch.io.sketch_db import ShardedDB, load_db_rows
     from hypergen_tpu_torch.parallel import mesh
@@ -237,9 +256,9 @@ def multihost_topk_search(
         hv, norm = part.hvs, part.norms
     log.info("pod search: process %d/%d holds DB rows [%d, %d) of %d",
              rank, nproc, lo, hi, M)
-    mode = _mode(mode, devs[0], hv, q_hv)
     q_on = _on_devices(devs, q_hv, q_norm)
-    v, i, d = _candidates(devs, hv, norm, block, q_on, ksize, k_top, mode)
+    v, i, d = _candidates(devs, hv, norm, block, q_on, ksize, k_top,
+                          *_query_mode(mode, devs, q_on))
     i = i + rank * block
     if nproc > 1:
         with span("search_dot_topk"):

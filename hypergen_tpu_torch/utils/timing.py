@@ -20,9 +20,10 @@ thread only (the parser threads open none):
   ``db_save``, ``db_load_manifest``, ``db_load_assemble``,
   ``db_load_read`` and, for shards not in ``np.save``'s own layout,
   ``db_load_fallback``;
-- the search call (``parallel/search.py``): ``search_mode_scan``,
-  ``search_upload``, ``search_dot_topk``, ``search_fetch``,
-  ``search_host_chain``;
+- the search call (``parallel/search.py``): ``search_mode_scan`` (the dot
+  mode's reduction on the card and its read, once for the queries and
+  once a tile on each card), ``search_upload``, ``search_dot_topk``,
+  ``search_fetch``, ``search_host_chain``;
 - `dist`'s pair path (``models/comparator.py``): ``dist_compare`` (a whole
   ``ani_pairs_thresholded`` or ``ani_pairs_streamed``), ``dist_preload``,
   and in each tile ``dist_fetch`` (the wait for the card and the copy to
@@ -36,6 +37,9 @@ the host chain keeps: the report's rows when it has no top-k cap). Its
 tile products are ``SPANS.dist_fetch.n``. The `dist` and `search` TSVs
 count their rows in ``tsv_rows_native`` (formatted by ``csrc/tsv_rows.cpp``)
 and ``tsv_rows_fallback`` (by ``np.char``, where the routine cannot run).
+Every exact int8 product of `search` and `dist` counts its split
+(``ops/ani.py``): ``dot_tiles_small`` (the 3-product one) or
+``dot_tiles_split4`` (the 4-way one).
 
 ``StageTimer`` is the JAX package's class: named host-clock spans and the
 same report. ``Sketcher.sketch_files`` uses ``SketchTimer``, a StageTimer

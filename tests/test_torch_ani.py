@@ -176,11 +176,11 @@ def test_resolve_mode_matches_jax(top):
     b = np.zeros((2, 8), np.int16)
     b[1, 3] = -top
     want = _resolve_mxu(True, a, b)
-    assert torch_ani.resolve_mode(None, "cuda", a, b) == want
+    assert torch_ani.resolve_mode(None, "cuda", _t(a), _t(b)) == want
     assert torch_ani.resolve_mode(True, "cpu", _t(a), _t(b)) == want
-    assert torch_ani.resolve_mode(None, "cpu", a, b) is False
-    assert torch_ani.resolve_mode("small", "cuda", a) == "small"
-    assert torch_ani.abs_bound(b) == top == torch_ani.abs_bound(_t(b))
+    assert torch_ani.resolve_mode(None, "cpu", _t(a), _t(b)) is False
+    assert torch_ani.resolve_mode("small", "cuda", _t(a)) == "small"
+    assert torch_ani.abs_bound(_t(b)) == top
 
 
 def test_topk_desc_matches_lax_top_k():
@@ -238,7 +238,8 @@ def test_dot_tiles_and_dense_pairs_match_jax(mode):
     ref, qry = _db(1, 11), _db(2, 7, names="q")
     jc = JaxComparator(ksize=21, tile_m=4, tile_n=3, use_mxu=mode)
     tc = Comparator(ksize=21, device="cpu", tile_m=4, tile_n=3, mode=mode)
-    assert tc.dot_mode(ref.hvs, qry.hvs) == jc.dot_mode(ref.hvs, qry.hvs)
+    assert tc.dot_mode(_t(ref.hvs), _t(qry.hvs)) == jc.dot_mode(ref.hvs,
+                                                                qry.hvs)
     blocks = tc.preload_rows(ref.hvs)
     want = list(jc.dot_tiles(ref.hvs, qry.hvs))
     for got in (list(tc.dot_tiles(ref.hvs, qry.hvs)),
@@ -285,10 +286,12 @@ def test_pair_paths_offsets_and_blocks_match_jax(mode, threshold):
 
 
 def test_reference_is_scanned_once_a_dist_call(monkeypatch):
-    """abs_bound runs once over the reference in a symmetric dist call
-    (when it is preloaded; the query is the reference's own array), and
-    not over the reference when its resident blocks are passed in: then
-    only over the queries."""
+    """abs_bound reads the reference's bound once a dist call, from the
+    row tiles' bounds reduced where they were uploaded (when it is
+    preloaded; in a symmetric call the query is the reference's own array
+    and is not read), and not the reference when its resident blocks are
+    passed in: then each query tile on the device. It never sees a host
+    array."""
     from hypergen_tpu_torch.models import comparator as comp_mod
 
     scanned = []
@@ -298,15 +301,22 @@ def test_reference_is_scanned_once_a_dist_call(monkeypatch):
     ref, qry = _db(1, 11), _db(2, 7, names="q")
     tc = Comparator(ksize=21, device="cpu", tile_m=4, tile_n=3, mode=True)
     got = tc.ani_pairs_thresholded(ref, ref, True, 85.0)
-    assert len(scanned) == 1 and scanned[0] is ref.hvs
+    tile_bounds = [int(np.abs(ref.hvs[mi : mi + 4].astype(np.int32)).max())
+                   for mi in range(0, 11, 4)]
+    assert len(scanned) == 1 and isinstance(scanned[0], torch.Tensor)
+    assert scanned[0].tolist() == tile_bounds
     blocks = tc.preload_ref(ref)
     assert isinstance(blocks[0][0], torch_ani.SmallSplit)
     scanned.clear()
     tc.ani_pairs_thresholded(ref, qry, False, 85.0, ref_blocks=blocks)
     tc.ani_pairs_streamed(ref, qry, False, 0.0,
                           ref_blocks=tc.preload_rows(ref.hvs))
-    assert [a is qry.hvs for a in scanned] == [True, False, True]
-    assert scanned[1] is ref.hvs  # preload_rows, not the call
+    assert all(isinstance(a, torch.Tensor) for a in scanned)
+    q_tiles = [qry.hvs[nj : nj + 3] for nj in range(0, 7, 3)]
+    assert len(scanned) == 7
+    for a, q in zip(scanned[:3] + scanned[4:], q_tiles + q_tiles):
+        np.testing.assert_array_equal(a.numpy(), q)
+    assert scanned[3].tolist() == tile_bounds  # preload_rows, not the call
     want = comp_mod.Comparator(ksize=21, device="cpu", tile_m=4, tile_n=3,
                                mode=False).ani_pairs_thresholded(
                                    ref, ref, True, 85.0)
@@ -326,7 +336,9 @@ def test_over_bound_query_against_small_tiles_is_the_direct_dot(over):
                         mode=False)
     blocks = tc.preload_rows(ref.hvs)
     assert isinstance(blocks[0], torch_ani.SmallSplit)
-    assert tc._call_mode(blocks[0], ref.hvs, qry.hvs) is True
+    q_tiles = [torch.from_numpy(qry.hvs[nj : nj + 3]) for nj in (0, 3, 6)]
+    assert [tc._query_mode(blocks[0], q, False)
+            for q in q_tiles] == ["small", True, "small"]
     want = (ref.hvs.astype(np.int64) @ qry.hvs.astype(np.int64).T)
     want = ((want + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
     for mi, nj, tile in tc.dot_tiles(ref.hvs, qry.hvs, r_blocks=blocks):
@@ -349,3 +361,56 @@ def test_splits_match_jax_on_every_int16():
         for a, b in zip(tsplit(_t(x)), jsplit(_jx(x))):
             assert a.dtype == torch.int8
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def _straddling_db(seed, n, names="g"):
+    """_db with rows 5 (6176) and 9 (-32768) past SMALL_SPLIT_MAX: at
+    tile_m=4 the second and the third row tile, the first fitting."""
+    db = _db(seed, n, names=names)
+    db.hvs[5, 7], db.hvs[9, 2] = 6176, -32768
+    db.norms = (db.hvs.astype(np.int64) ** 2).sum(-1).astype(np.int32)
+    return db
+
+
+@pytest.mark.parametrize("path,threshold", [("ani_pairs_thresholded", 85.0),
+                                            ("ani_pairs_streamed", 0.0)])
+def test_straddling_dist_matches_direct_and_jax(tmp_path, path, threshold):
+    """With mode=True, a collection whose row tiles straddle the bound
+    takes the 4-way split in every tile (one mode for the resident tiles),
+    and a query tile past the bound against fitting tiles takes it for
+    that query tile only; the pairs and the TSV equal mode=False's and the
+    JAX package's, and each product counts its split."""
+    from hypergen_tpu.models.comparator import (
+        write_ani_report as jax_write_ani_report)
+    from hypergen_tpu_torch.models.comparator import write_ani_report
+    from hypergen_tpu_torch.utils.timing import COUNTERS, SPANS
+
+    coll, fit, qry = _straddling_db(1, 11), _db(1, 11), _db(2, 7, names="q")
+    qry.hvs[4, 3] = 6176  # the second of three query tiles of 3
+    qry.norms = (qry.hvs.astype(np.int64) ** 2).sum(-1).astype(np.int32)
+    tc = Comparator(ksize=21, device="cpu", tile_m=4, tile_n=3, mode=True)
+    direct = Comparator(ksize=21, device="cpu", tile_m=4, tile_n=3,
+                        mode=False)
+    jc = JaxComparator(ksize=21, tile_m=4, tile_n=3, use_mxu=True)
+    # (ref, query, symmetric, products with a fitting query tile)
+    for ref, q, sym, small in ((coll, coll, True, 0), (fit, qry, False, 6)):
+        before = (COUNTERS.dot_tiles_small, COUNTERS.dot_tiles_split4,
+                  SPANS.dist_fetch.n)
+        got = getattr(tc, path)(ref, q, sym, threshold)
+        products = SPANS.dist_fetch.n - before[2]
+        assert products == (8 if sym else 9)  # 4 of 12 below the diagonal
+        assert (COUNTERS.dot_tiles_small - before[0],
+                COUNTERS.dot_tiles_split4 - before[1]) == (small,
+                                                           products - small)
+        want = getattr(jc, path)(_jax_db(ref), _jax_db(q), sym, threshold)
+        for a, b, c in zip(got, getattr(direct, path)(ref, q, sym, threshold),
+                           want):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, np.asarray(c))
+        assert got[0].size > 0
+        write_ani_report(tmp_path / "got.tsv", ref.names, q.names,
+                         *got[:3], threshold)
+        jax_write_ani_report(tmp_path / "jax.tsv", ref.names, q.names,
+                             *(np.asarray(x) for x in want[:3]), threshold)
+        assert ((tmp_path / "got.tsv").read_bytes()
+                == (tmp_path / "jax.tsv").read_bytes())

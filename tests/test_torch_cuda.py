@@ -323,6 +323,83 @@ def test_cuda_sharded_search_matches_tiled(cuda):
     np.testing.assert_array_equal(a[1][0, :3], [1, 4, 199])
 
 
+@pytest.mark.cuda
+def test_cuda_straddling_tiles_match_cpu(cuda, tmp_path):
+    """A DB whose row tiles straddle SMALL_SPLIT_MAX (one holds 6176,
+    another -32768, the rest fit), and a query tile past it against
+    fitting tiles: the card's search (each tile's own mode, on one card and
+    over [card] x 4) and dist (one mode for the resident tiles, each query
+    tile's own) give the CPU's mode=False winners, dots, pairs and TSV
+    bytes, and each product counts its split."""
+    from hypergen_tpu_torch.io.sketch_db import ShardedDB
+    from hypergen_tpu_torch.models.comparator import (
+        Comparator, write_ani_report)
+    from hypergen_tpu_torch.parallel.search import (
+        topk_search, write_search_tsv)
+    from hypergen_tpu_torch.utils.timing import COUNTERS
+
+    def db(prefix, hv):
+        return ShardedDB(ksize=21, scaled=1500, canonical=True, seed=123,
+                         hv_d=512, names=[f"{prefix}{i}" for i in
+                                          range(hv.shape[0])], hvs=hv,
+                         norms=(hv.astype(np.int64) ** 2).sum(-1)
+                         .astype(np.int32))
+
+    fit = _hv_rows(9, 300, 512)[0]
+    mixed = fit.copy()
+    mixed[70, 3], mixed[150, 9] = 6176, -32768  # row tiles 1 and 2 of 64
+    q_fit = _hv_rows(10, 37, 512, dups=False)[0]
+    q_fit[:3] = fit[[1, 2, 250]]
+    q_over = q_fit.copy()
+    q_over[20, 5] = 6176  # query tile 1 of 16
+    # search: (devices, DB, queries, (parts that fit, parts that do not))
+    for devs, ref, q, split in (
+            ([cuda], mixed, q_fit, (3, 2)),  # 5 tiles of 64 rows
+            ([cuda] * 4, mixed, q_fit, (18, 2)),  # 5 x 4 parts of 16
+            ([cuda] * 4, mixed, q_over, (0, 20))):
+        ref_db, q_db = db("r", ref), db("q", q)
+        args = (ref_db.hvs, ref_db.norms, q_db.hvs, q_db.norms, 21, 5)
+        before = (COUNTERS.dot_tiles_small, COUNTERS.dot_tiles_split4)
+        got = topk_search(devs, *args, tile_rows=64)
+        assert (COUNTERS.dot_tiles_small - before[0],
+                COUNTERS.dot_tiles_split4 - before[1]) == split
+        want = topk_search(["cpu"], *args, mode=False, tile_rows=64)
+        for x, y in zip(got[1:], want[1:]):
+            np.testing.assert_array_equal(x, y)
+        np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-4)
+        for name, res in (("card", got), ("cpu", want)):
+            write_search_tsv(tmp_path / name, ref_db.names, ref_db.norms,
+                             q_db, *res, 0.0)
+        assert ((tmp_path / "card").read_bytes()
+                == (tmp_path / "cpu").read_bytes())
+    # dist: the straddling collection against itself; fitting rows against
+    # the over-bound queries
+    for ref, q, sym in ((mixed, mixed, True), (fit, q_over, False)):
+        ref_db = db("r", ref)
+        q_db = ref_db if sym else db("q", q)
+        for path, th in (("ani_pairs_thresholded", 85.0),
+                         ("ani_pairs_streamed", 0.0)):
+            card = Comparator(21, device=cuda, tile_m=64, tile_n=16)
+            before = (COUNTERS.dot_tiles_small, COUNTERS.dot_tiles_split4)
+            got = getattr(card, path)(ref_db, q_db, sym, th)
+            small, split4 = (COUNTERS.dot_tiles_small - before[0],
+                             COUNTERS.dot_tiles_split4 - before[1])
+            # 5 row tiles x 3 query tiles, the second past the bound
+            assert (small == 0 and split4 > 0) if sym else (
+                (small, split4) == (10, 5))
+            want = getattr(Comparator(21, device="cpu", tile_m=64,
+                                      tile_n=16, mode=False), path)(
+                ref_db, q_db, sym, th)
+            assert got[0].size > 0
+            for x, y in zip(got, want):
+                np.testing.assert_array_equal(x, y)
+            for name, res in (("card", got), ("cpu", want)):
+                write_ani_report(tmp_path / name, ref_db.names, q_db.names,
+                                 *res[:3], th)
+            assert ((tmp_path / "card").read_bytes()
+                    == (tmp_path / "cpu").read_bytes())
+
+
 _POD_SEARCH = """
 import sys
 import numpy as np

@@ -11,6 +11,7 @@ equal TSV bytes.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from hypergen_tpu.models import comparator as jax_comp
 from hypergen_tpu.parallel import search as jax_search
@@ -169,3 +170,98 @@ def test_write_search_tsv_is_the_host_chain(data, tmp_path):
     for line in rows:
         r, qq, v = line.split("\t")
         assert v == f"{host[int(r[1:]), int(qq[1:])]:.3f}"
+
+
+def _straddling(data, q_over):
+    """data with DB rows 4 (6176) and 7 (-32768) past SMALL_SPLIT_MAX, in
+    the second and third of tile_rows=3's row tiles, the other tiles
+    fitting; with q_over also query 2 past it (6176)."""
+    db_hv, db_norm, q_hv, q_norm = (a.copy() for a in data)
+    db_hv[4, 5], db_hv[7, 0] = 6176, -32768
+    if q_over:
+        q_hv[2, 9] = 6176
+    return tuple(x for h in (db_hv, q_hv)
+                 for x in (h, (h.astype(np.int64) ** 2).sum(-1)
+                           .astype(np.int32)))
+
+
+# (devices, the tiles' parts that fit, those that do not): at tile_rows=3
+# one device has the parts 0-2, 3-5 (6176), 6-8 (-32768), 9; two have
+# 0-1, 2-3; 4-5, 6-7; 8, 9
+@pytest.mark.parametrize("n,small,split4", [(1, 2, 2), (2, 4, 2)])
+@pytest.mark.parametrize("q_over", [False, True])
+def test_straddling_tiles_take_their_own_modes(data, tmp_path, n, small,
+                                               split4, q_over):
+    """mode=True decides each tile's mode from its own rows (and the
+    queries): the 3-product split where the tile and the queries fit, the
+    4-way one elsewhere, every tile 4-way when a query is past the bound.
+    The top-k and the TSV equal mode=False's and the JAX package's."""
+    from hypergen_tpu.cli import main as jax_main
+    from hypergen_tpu_torch.io.sketch_db import ShardedDB, dump_sharded_db
+    from hypergen_tpu_torch.utils.timing import COUNTERS
+
+    mixed = _straddling(data, q_over)
+    devs = ["cpu"] * n
+    before = (COUNTERS.dot_tiles_small, COUNTERS.dot_tiles_split4)
+    got = torch_search.topk_search(devs, *mixed, 21, 5, mode=True,
+                                   tile_rows=3)
+    counted = (COUNTERS.dot_tiles_small - before[0],
+               COUNTERS.dot_tiles_split4 - before[1])
+    assert counted == ((0, small + split4) if q_over else (small, split4))
+    direct = torch_search.topk_search(devs, *mixed, 21, 5, mode=False,
+                                      tile_rows=3)
+    for a, b in zip(got, direct):
+        np.testing.assert_array_equal(a, b)
+    _assert_same(got, jax_search.sharded_topk_search_tiled(
+        _mesh(n), *mixed, 21, 5, tile_m=3, use_mxu=True))
+
+    def db(prefix, hv, norm):
+        return ShardedDB(ksize=21, scaled=1500, canonical=True, seed=123,
+                         hv_d=96, names=[f"{prefix}{i}" for i in
+                                         range(hv.shape[0])],
+                         hvs=hv, norms=norm)
+
+    ref, q = db("r", *mixed[:2]), db("q", *mixed[2:])
+    dump_sharded_db(ref, tmp_path / "r.hgdb", n_shards=2)
+    dump_sharded_db(q, tmp_path / "q.hgdb")
+    jax_main(["search", "-r", str(tmp_path / "r.hgdb"), "-q",
+              str(tmp_path / "q.hgdb"), "-o", str(tmp_path / "jax.tsv"),
+              "--top_k", "5", "-a", "0", "-D", "cpu"])
+    for name, res in (("got.tsv", got), ("direct.tsv", direct)):
+        torch_search.write_search_tsv(tmp_path / name, ref.names, ref.norms,
+                                      q, *res, 0.0)
+        assert ((tmp_path / name).read_bytes()
+                == (tmp_path / "jax.tsv").read_bytes())
+
+
+def test_search_reads_no_host_array_for_its_mode(data, monkeypatch):
+    """abs_bound sees only tensors (the uploaded queries and tiles) in
+    topk_search and in a one-process multihost_topk_search, once for the
+    queries and once for each tile's part on each device; never with
+    mode=False."""
+    from hypergen_tpu_torch.io.sketch_db import ShardedDB
+    from hypergen_tpu_torch.ops import ani as tani
+
+    seen = []
+    orig = tani.abs_bound
+    monkeypatch.setattr(tani, "abs_bound",
+                        lambda a: seen.append(a) or orig(a))
+    want = torch_search.topk_search(["cpu"], *data, 21, 4, mode=False)
+    assert seen == []
+    db = ShardedDB(ksize=21, scaled=1500, canonical=True, seed=123, hv_d=96,
+                   names=[f"r{i}" for i in range(10)], hvs=data[0],
+                   norms=data[1])
+    for search, parts in (
+            # tiles of 4 rows, 2 a device: 3 tiles on 2 devices
+            (lambda: torch_search.topk_search(["cpu"] * 2, *data, 21, 4,
+                                              mode=True, tile_rows=4), 6),
+            # one tile of the process's 10 rows, 5 a device
+            (lambda: torch_search.multihost_topk_search(
+                db, *data[2:], 21, 4, ["cpu"] * 2, mode=True), 2)):
+        seen.clear()
+        got = search()
+        assert len(seen) == 1 + parts
+        assert all(isinstance(a, torch.Tensor) for a in seen)
+        np.testing.assert_array_equal(seen[0].numpy(), data[2])
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)

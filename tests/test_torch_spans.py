@@ -243,13 +243,15 @@ def test_hgdb_write_and_load_ranges(tmp_path):
     assert db.names == [s.file_str for s in sketches]
 
 
-@pytest.mark.parametrize("devices,limit", [
-    (["cpu"], None),  # one pass
-    (["cpu", "cpu"], None),  # sharded
-    (["cpu"], 64 * 24),  # tiles of 256 rows
-    (["cpu", "cpu"], 64 * 24),  # tiles of 2 x 256 rows
+# parts: a tile's share on one device, each deciding its mode in a span
+@pytest.mark.parametrize("devices,limit,parts", [
+    (["cpu"], None, 1),  # one pass
+    (["cpu", "cpu"], None, 2),  # sharded
+    (["cpu"], 64 * 24, 3),  # tiles of 256 rows
+    (["cpu", "cpu"], 64 * 24, 4),  # tiles of 2 x 256 rows
 ], ids=["one_pass", "sharded", "tiled", "sharded_tiled"])
-def test_search_ranges_on_every_route(tmp_path, monkeypatch, devices, limit):
+def test_search_ranges_on_every_route(tmp_path, monkeypatch, devices, limit,
+                                      parts):
     rng = np.random.default_rng(43)
     ref, q = _db(rng, 600), _db(rng, 24, names="q")
     q.hvs[:8] = ref.hvs[:8]
@@ -279,7 +281,9 @@ def test_search_ranges_on_every_route(tmp_path, monkeypatch, devices, limit):
         assert SPANS[n].n > before[n][1], n
     for n in LOAD:
         assert _parents(ranges, f"hg:{n}") == {"test:load"}, n
-    assert SPANS.search_mode_scan.n == before["search_mode_scan"][1] + 1
+    # once for the queries and once a part
+    assert (SPANS.search_mode_scan.n
+            == before["search_mode_scan"][1] + 1 + parts)
     assert SPANS.search_host_chain.n == before["search_host_chain"][1] + 1
     assert ((tmp_path / "got.tsv").read_bytes()
             == (tmp_path / "want.tsv").read_bytes())
